@@ -1,0 +1,121 @@
+"""The port's resampling (slam_tpu_torch.ops.resampling) against the JAX
+package's.
+
+The stratified dither is threefry ``fold_in`` in JAX, which torch cannot
+reproduce, and the JAX prefix sum rounds differently from
+``torch.cumsum``. So the discrete outputs (offspring bounds, ancestors)
+are compared bit for bit given JAX's csum and U = _uniform_at(key,
+arange(P)); the float outputs (normalized weights, Neff) at rtol 1e-6,
+the rounding of a logsumexp over P terms."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam_tpu.ops import resampling as jrs
+from slam_tpu_torch.ops import resampling as trs
+
+
+def _logw(P, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return np.full(P, -np.log(P), np.float32)
+    if kind == "collapsed":
+        lw = np.full(P, -60.0, np.float32)
+        lw[rng.integers(P)] = 0.0
+        return lw
+    return (rng.normal(size=P) * 3.0).astype(np.float32)
+
+
+def _jax_draws(logw, key):
+    """JAX's stratified csum (stratified_indices' own) and dither."""
+    P = logw.shape[0]
+    csum = np.asarray(jrs._cumsum_2d(jnp.exp(jrs.normalize_log_weights(
+        jnp.asarray(logw)))))
+    U = np.asarray(jrs._uniform_at(key, jnp.arange(P, dtype=jnp.int32)))
+    return csum, torch.tensor(U)
+
+
+CASES = [(P, kind) for P in (300, 2048)
+         for kind in ("random", "uniform", "collapsed")]
+
+
+@pytest.mark.parametrize("P,kind", CASES)
+def test_offspring_bounds_and_ancestors_bit_exact(P, kind):
+    key = jax.random.PRNGKey(P)
+    csum, U = _jax_draws(_logw(P, kind), key)
+    want_S = np.asarray(jrs.offspring_bounds(key, jnp.asarray(csum), P))
+    got_S = trs.offspring_bounds(torch.tensor(csum), P,
+                                 lambda pos: U[pos])
+    assert got_S.dtype == torch.int32
+    np.testing.assert_array_equal(got_S.numpy(), want_S)
+
+    want_A = np.asarray(jrs.ancestors_from_bounds(jnp.asarray(want_S), P))
+    got_A = trs.ancestors_from_bounds(torch.tensor(want_S), P)
+    np.testing.assert_array_equal(got_A.numpy(), want_A)
+
+
+@pytest.mark.parametrize("P,kind", CASES)
+def test_stratified_indices_bit_exact(P, kind, monkeypatch):
+    key = jax.random.PRNGKey(7 * P)
+    logw = _logw(P, kind, seed=1)
+    csum, U = _jax_draws(logw, key)
+    monkeypatch.setattr(trs, "cumulative_weights",
+                        lambda logw_n: torch.tensor(csum))
+    got = trs.stratified_indices(torch.tensor(logw), lambda pos: U[pos])
+    want = np.asarray(jrs.stratified_indices(key, jnp.asarray(logw)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.all(np.diff(got.numpy()) >= 0)
+
+
+def test_offspring_bounds_cummax_guard():
+    """A prefix sum that dips by an ulp (the JAX blocked cumsum does at
+    block edges) still gives a non-decreasing partition, equal to
+    JAX's."""
+    P = 64
+    csum = np.cumsum(np.full(P, 1.0 / P, np.float32)).astype(np.float32)
+    csum[20] = np.nextafter(csum[19], np.float32(0))   # dip below csum[19]
+    key = jax.random.PRNGKey(3)
+    U = np.asarray(jrs._uniform_at(key, jnp.arange(P, dtype=jnp.int32)))
+    want = np.asarray(jrs.offspring_bounds(key, jnp.asarray(csum), P))
+    got = trs.offspring_bounds(torch.tensor(csum), P,
+                               lambda pos: torch.tensor(U)[pos])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.all(np.diff(got.numpy()) >= 0) and got[-1] == P
+
+
+@pytest.mark.parametrize("kind", ["random", "uniform", "collapsed"])
+def test_normalize_and_neff_match_jax(kind):
+    logw = _logw(1000, kind, seed=2)
+    np.testing.assert_allclose(
+        trs.normalize_log_weights(torch.tensor(logw)).numpy(),
+        np.asarray(jrs.normalize_log_weights(jnp.asarray(logw))),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        float(trs.effective_particles(torch.tensor(logw))),
+        float(jrs.effective_particles(jnp.asarray(logw))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [700, 1024, 5000, 1024 * 1024 + 3])
+def test_cumulative_weights_blocked_prefix_sum(n):
+    """The row-blocked prefix sum agrees with a float64 cumsum to
+    float32 rounding (atol 1e-6 on a sum that ends at 1) and ends at the
+    total."""
+    logw = _logw(n, "random", seed=4)
+    logw_n = trs.normalize_log_weights(torch.tensor(logw))
+    got = trs.cumulative_weights(logw_n).numpy()
+    want = np.cumsum(np.exp(logw_n.numpy().astype(np.float64)))
+    assert got.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.all(np.diff(got) >= -1e-7)
+
+
+def test_uniform_from_generator_is_a_function_of_position():
+    g = torch.Generator().manual_seed(0)
+    u = trs.uniform_from_generator(50, g)
+    pos = torch.tensor([3, 7, 3, 49, 0])
+    a = u(pos)
+    assert a[0] == a[2] and torch.all((a >= 0) & (a < 1))
+    np.testing.assert_array_equal(u(pos).numpy(), a.numpy())
