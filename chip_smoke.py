@@ -10,19 +10,35 @@ Phases, in order; any failure raises and exits non-zero:
    (nvidia-smi) and turns TF32 off.
 2. Build: compiles the CUDA kernels from slam_tpu_torch/csrc.
 3. Kernels against their plain PyTorch twins on the card, at the shapes
-   the main path gives them: K2 (K=15, P=100), K4 (K=15, L=200,
+   the main paths give them: K2 (K=15, P=100), K4 (K=15, L=200,
    P=2^17), G1 (P=100) and G2 (P=2^17), both over the 10 + 5L rows of
-   the resample gather. Gathers must be bit-equal; float outputs within
-   rtol 1e-5, atol 1e-5 (the kernels sum over k in another order than
-   the twins, and the device libm rounds sin/cos/log differently from
-   torch's). Times both with CUDA events.
-4. FastSLAM 1 end to end through Runner + compute_metrics, as the CLI
-   runs it, on data/dense200 for 2000 ticks and seeds 3, 4, 5:
-   (a) P = 100 must run through K2 and G1, (b) P = 131072 through K4 and
-   G2, as the launch counters show; in both the 3-seed RMS ATE must be
-   finite and below twice the JAX package's (JAX_ANCHOR_ATE_M).
-5. Replay: the same seed at P = 131072 twice gives bit-identical
-   estimates (no reduction or scan on the path rounds by timing).
+   the resample gather; K5 at config #5's shapes (K=96, L=192, P=2^20)
+   with a fired resample; K6 (T=8, P=2^20) with the noise on and off.
+   Gathers must be bit-equal; float outputs within rtol 1e-5, atol 1e-5
+   (the kernels sum over k in another order than the twins, and the
+   device libm rounds sin/cos/log differently from torch's); K6's
+   headings are compared wrapped, as one ulp at +-pi flips a wrapped
+   value by 2 pi. Times each kernel and its twin with CUDA events.
+4. FastSLAM 1 end to end through Runner + compute_metrics; the launch
+   counters are reset before each run and read after it:
+   (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2 and
+       G1, and not K4 or G2;
+   (b) the same at P = 131072: K4 and G2, and not K2 or G1;
+   (c) config #5's filter, FastSlam1Deferred at P = 2^20 with capacity
+       192, 256 ticks, seeds 3, 4, 5: K6 once per superstep, K5 and G2
+       at least once per run, one host sync per superstep;
+   (d) FastSlam1Deferred on dense200 at P = 131072, 2000 ticks, seeds 3,
+       4, 5: K5 and K6, and not K2 or G1.
+   Each 3-seed RMS ATE must be finite and below twice the JAX package's
+   on the same world and seeds (JAX_ANCHOR_ATE_M, JAX_CONFIG5_ATE_M).
+5. Deferred against eager: FastSlam1Deferred with the per-tick predict
+   against FastSlam1, dense200, P = 131072, seed 3, 400 ticks. They draw
+   the same random numbers and K5 runs K4's code, so the pose traces and
+   the finalized states must be bit-identical, or at least within rtol
+   and atol 1e-4; the line printed says which held.
+6. Replay: seed 3 at P = 131072 twice, eager and deferred, gives
+   bit-identical estimates (no reduction or scan on the paths rounds by
+   timing).
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON) and the card's name and power limit.
@@ -49,14 +65,33 @@ import time
 #     print(a, np.sqrt(np.mean(np.square(a))))"
 # -> [1.4713972806930542, 0.48239609599113464, 1.4304887056350708]
 JAX_ANCHOR_ATE_M = 1.2171022811043042
+# The same for config #5's world, the JAX package's eager FastSLAM 1 with
+# 1024 particles and 256 ticks (CPU), measured by:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np;
+#     from slam_tpu.runtime import Runner, compute_metrics;
+#     from slam_tpu.runtime.config5 import config5_setup;
+#     c, m = config5_setup(10_000, capacity=192, max_obs=96);
+#     a = [compute_metrics(Runner(c, m, 'FASTSLAM1', n_particles=1024)
+#          .run(seed=s, n_ticks=256)).ate_rmse for s in (3, 4, 5)];
+#     print(a, np.sqrt(np.mean(np.square(a))))"
+# -> [0.050281304866075516, 0.034129798412323, 0.05376854166388512]
+JAX_CONFIG5_ATE_M = 0.04684765675876786
 ATE_MARGIN = 2.0
 
 MAP, INI = "data/dense200.mat", "data/dense200.ini"
 TICKS, SEEDS = 2000, (3, 4, 5)
 P_SMALL, P_LARGE = 100, 131072
 K_OBS, CAPACITY = 15, 200
+# Config #5's filter stage on one card, as the JAX package's
+# bench_config5 runs it: 10k landmarks, capacity 192, at most 96
+# observations, 2^20 particles, 32 supersteps.
+C5_LANDMARKS, C5_CAPACITY, C5_MAX_OBS = 10_000, 192, 96
+C5_P, C5_TICKS = 2 ** 20, 256
+T_PREDICT = 8
 TOL = dict(rtol=1e-5, atol=1e-5)
+TOL_PATHS = dict(rtol=1e-4, atol=1e-4)
 R = [[0.01, 0.0], [0.0, 0.0003]]
+Q = [[0.09, 0.0], [0.0, 0.0025]]
 
 KERNELS = {
     "K2": ("slam_tpu_torch/csrc/observe.cu",
@@ -67,6 +102,10 @@ KERNELS = {
            "slam_tpu/ops/pallas/gather.py:128"),
     "G2": ("slam_tpu_torch/csrc/gather.cu",
            "slam_tpu/ops/pallas/gather.py:371"),
+    "K5": ("slam_tpu_torch/csrc/resample_update.cu",
+           "slam_tpu/ops/pallas/kernels.py:821"),
+    "K6": ("slam_tpu_torch/csrc/predict.cu",
+           "slam_tpu/ops/pallas/kernels.py:618"),
 }
 
 
@@ -233,74 +272,249 @@ def check_kernels(dev) -> dict:
                              plain_ms=plain_ms,
                              shape=f"rows={sum(a.shape[0] for a in arrays)}"
                                    f" P={P}")
+        del got, want, arrays
+    results["K5"] = check_k5(dev, rng, g)
+    results["K6"] = check_k6(dev, g)
     return results
 
 
-def run_slice(dev, P: int, on: tuple, off: tuple) -> tuple[dict, dict]:
-    """Phase 4: three seeds of FastSLAM 1 at P particles through the
-    CLI's path; checks the kernels launched and the ATE bound."""
+def check_k5(dev, rng, g) -> dict:
+    """K5 at config #5's shapes: 150 live landmarks of 192 slots, 70
+    matched observations, 20 new ones, 6 masked (K = 96), and the
+    offspring bounds of a fired resample."""
     import numpy as np
     import torch
 
+    from slam_tpu_torch.models.particles import init_particles
+    from slam_tpu_torch.models.rbpf import associate_known, new_slots
+    from slam_tpu_torch.ops import resampling as rs
+    from slam_tpu_torch.ops.kernels import kernels as kk
+
+    P, L, K, n_map, live = C5_P, C5_CAPACITY, C5_MAX_OBS, 400, 150
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    state = init_particles(P, L, n_map, device=dev)
+    truth = rng.uniform(-25.0, 25.0, size=(n_map, 2))
+    table = np.full(n_map, -1, np.int32)
+    table[:live] = rng.permutation(live)
+    lm = torch.zeros((2, L, P), **f32)
+    lm[:, table[:live]] = t(truth[:live].T[:, :, None])
+    lm += 0.2 * torch.randn((2, L, P), generator=g, **f32)
+    state.lm.copy_(lm)
+    del lm
+    state.lm_P[0, :live] = 0.05
+    state.lm_P[1, :live] = 0.01
+    state.lm_P[2, :live] = 0.04
+    state.xv.copy_(0.1 * torch.randn((3, P), generator=g, **f32))
+    state = state._replace(n=t(live, torch.int32),
+                           da_table=t(table, torch.int32))
+    ids_np = np.concatenate([rng.choice(live, 70, replace=False),
+                             np.arange(live, live + 20),
+                             rng.choice(live, 6, replace=False)]
+                            ).astype(np.int32)
+    d = truth[ids_np]
+    z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
+                           np.arctan2(d[:, 1], d[:, 0])]))
+    ids = t(ids_np, torch.int32)
+    zmask = t(np.arange(K) < 90, torch.bool)
+    assoc, is_new = associate_known(state, ids, zmask)
+    matched = assoc >= 0
+    slot = torch.where(matched, assoc, 0).to(torch.int32)
+    slot_new, ok = new_slots(state, is_new)
+    check(int(matched.sum()) == 70 and int(ok.sum()) == 20,
+          "K5 input: expected 70 matched and 20 new observations")
+    logw = torch.randn(P, generator=g, **f32)
+    S = rs.offspring_bounds(
+        rs.cumulative_weights(rs.normalize_log_weights(logw)), P,
+        rs.uniform_from_generator(P, g, dev))
+    check(not torch.equal(S, torch.arange(1, P + 1, device=dev,
+                                          dtype=torch.int32)),
+          "K5 input: the bounds are the identity")
+
+    def args(lw):
+        return (state.xv, lw, state.lm, state.lm_P, S, z, slot, matched,
+                slot_new, ok, R)
+    lw_k, lw_p = logw.clone(), logw.clone()
+    got = (lw_k, *kk.resample_update(*args(lw_k)))
+    want = (lw_p, *kk.resample_update_plain(*args(lw_p)))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+    err = max_abs_err(got, want)
+    del got, want
+    lw_k, lw_p = logw.clone(), logw.clone()
+    ms, plain_ms = timed_pair(lambda: kk.resample_update(*args(lw_k)),
+                              lambda: kk.resample_update_plain(
+                                  *args(lw_p)))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"K={K} L={L} P={P}")
+
+
+def check_k6(dev, g) -> dict:
+    """K6 over T = 8 ticks at P = 2^20, draw for draw against its twin,
+    with the noise on (the main path's arm, timed) and off."""
+    import torch
+
+    from slam_tpu_torch.geometry import wrap_angle
+    from slam_tpu_torch.ops.kernels import predict as kp
+
+    P, T = C5_P, T_PREDICT
+    f32 = dict(dtype=torch.float32, device=dev)
+    xv = torch.randn((3, P), generator=g, **f32)
+    ctl = torch.stack([3.0 + 0.3 * torch.randn(T, generator=g, **f32),
+                       0.1 * torch.randn(T, generator=g, **f32)], dim=1)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                         generator=g, device=dev)
+    err = 0.0
+    for noise in (False, True):
+        kw = dict(wheelbase=4.0, dt=0.025, add_noise=noise)
+        got = kp.fs1_predict_multi(xv.clone(), seed, ctl, Q, **kw)
+        want = kp.fs1_predict_multi_plain(xv.clone(), seed, ctl, Q, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[:2], want[:2], **TOL)
+        dth = wrap_angle(got[2] - want[2])
+        torch.testing.assert_close(dth, torch.zeros_like(dth), **TOL)
+        err = max(err, max_abs_err([got[:2], dth],
+                                   [want[:2], torch.zeros_like(dth)]))
+    a, b = xv.clone(), xv.clone()
+    ms, plain_ms = timed_pair(
+        lambda: kp.fs1_predict_multi(a, seed, ctl, Q, **kw),
+        lambda: kp.fs1_predict_multi_plain(b, seed, ctl, Q, **kw))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=f"T={T} P={P}")
+
+
+def dense200():
     from slam_tpu_torch.config import SlamConfig
     from slam_tpu_torch.maps import read_map_file
-    from slam_tpu_torch.ops import kernels
-    from slam_tpu_torch.runtime import Runner, compute_metrics
+    return SlamConfig.from_ini(INI), read_map_file(MAP)
 
-    cfg = SlamConfig.from_ini(INI)
-    slam_map = read_map_file(MAP)
+
+def config5():
+    from slam_tpu_torch.runtime.config5 import config5_setup
+    return config5_setup(C5_LANDMARKS, capacity=C5_CAPACITY,
+                         max_obs=C5_MAX_OBS)
+
+
+def estimator(kind: str, cfg, slam_map, dev):
+    """"eager" (FastSlam1), "deferred" (FastSlam1Deferred with K6) or
+    "deferred-per-tick" (FastSlam1Deferred with the per-tick predict)."""
+    from slam_tpu_torch.models import FastSlam1, FastSlam1Deferred
+    if kind == "eager":
+        return FastSlam1(cfg, slam_map.n_landmarks, device=dev)
+    return FastSlam1Deferred(cfg, slam_map.n_landmarks, device=dev,
+                             fused_predict=kind == "deferred")
+
+
+def run_once(dev, kind, cfg, slam_map, P, seed, ticks):
+    """One run through Runner, as a user calls it: (result, finalized
+    particle state)."""
+    from slam_tpu_torch.runtime import Runner
+    est = estimator(kind, cfg, slam_map, dev)
+    result = Runner(cfg, slam_map, "FASTSLAM1", n_particles=P,
+                    estimator=est).run(seed=seed, n_ticks=ticks)
+    final = (est.finalize(result.final_state)
+             if hasattr(est, "finalize") else result.final_state)
+    return result, final
+
+
+def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
+              per_superstep=()) -> dict:
+    """Phase 4: three seeds at P particles. Checks the traces, the final
+    state, the kernels each run launched (reset before it, read after
+    it), and the 3-seed RMS ATE against twice the JAX anchor.
+    ``per_superstep``: kernels that must launch exactly once per
+    superstep."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import compute_metrics
+
+    cfg, slam_map = world
+    T = ticks // cfg.steps_per_observe
     ates, rates, syncs = [], [], []
-    kernels.reset_launch_counts()
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
     for seed in SEEDS:
-        runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=P,
-                        device=dev)
-        result = runner.run(seed=seed, n_ticks=TICKS)
+        kernels.reset_launch_counts()
+        result, fs = run_once(dev, kind, cfg, slam_map, P, seed, ticks)
+        counts = kernels.launch_counts()
         m = compute_metrics(result)
-        T = TICKS // cfg.steps_per_observe
         check(result.est_pose.shape == (T, 3),
-              f"est_pose shape {result.est_pose.shape}")
-        check(np.isfinite(result.est_pose).all(), "non-finite pose")
-        fs = result.final_state
-        check(fs.lm.shape == (2, runner.est.capacity, P),
-              f"landmark planes {tuple(fs.lm.shape)}")
-        check(bool(torch.isfinite(fs.logw).all()), "non-finite weights")
-        check(int(fs.n) > 0, "no landmark was mapped")
-        check(math.isfinite(m.ate_rmse), "non-finite ATE")
+              f"{name}: est_pose shape {result.est_pose.shape}")
+        check(np.isfinite(result.est_pose).all(), f"{name}: non-finite pose")
+        check(fs.lm.shape[-1] == P and fs.lm.shape[0] == 2,
+              f"{name}: landmark planes {tuple(fs.lm.shape)}")
+        check(bool(torch.isfinite(fs.logw).all()),
+              f"{name}: non-finite weights")
+        check(int(fs.n) > 0, f"{name}: no landmark was mapped")
+        check(math.isfinite(m.ate_rmse), f"{name}: non-finite ATE")
+        for k in on:
+            check(counts[k] > 0, f"{name} seed {seed}: {k} was never "
+                  f"launched {counts}")
+        for k in off:
+            check(counts[k] == 0, f"{name} seed {seed}: {k} should not "
+                  f"run {counts}")
+        for k in per_superstep:
+            check(counts[k] == T, f"{name} seed {seed}: {k} launched "
+                  f"{counts[k]} times in {T} supersteps")
+        total = {k: total[k] + counts[k] for k in total}
         ates.append(m.ate_rmse)
         rates.append(m.steps_per_second)
         syncs.append(m.host_syncs_per_superstep)
-        print(f"  P={P} seed={seed}: {m.summary()}", flush=True)
-    counts = kernels.launch_counts()
-    for k in on:
-        check(counts[k] > 0, f"P={P}: {k} was never launched {counts}")
-    for k in off:
-        check(counts[k] == 0, f"P={P}: {k} should not run {counts}")
+        print(f"  {name} P={P} seed={seed}: {m.summary()} {counts}",
+              flush=True)
     rms = float(np.sqrt(np.mean(np.square(ates))))
-    bound = ATE_MARGIN * JAX_ANCHOR_ATE_M
-    check(rms < bound, f"P={P}: RMS ATE {rms} >= {bound}")
-    summary = dict(P=P, ate_rmse_3seed=rms, ates=ates,
-                   steps_per_s=rates, host_syncs_per_superstep=syncs,
-                   launches=counts, ate_bound=bound)
-    print(f"slice P={P}: {json.dumps(summary)}", flush=True)
-    return summary, counts
+    bound = ATE_MARGIN * anchor
+    check(rms < bound, f"{name}: RMS ATE {rms} >= {bound}")
+    summary = dict(P=P, ate_rmse_3seed=rms, ates=ates, steps_per_s=rates,
+                   host_syncs_per_superstep=syncs, launches=total,
+                   ate_bound=bound)
+    print(f"slice {name}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def check_deferred_vs_eager(dev) -> str:
+    """Phase 5: the deferred path with the per-tick predict against the
+    eager path; returns "bit-identical" or "within 1e-4"."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.models.particles import FIELDS
+
+    world = dense200()
+    (r_e, f_e), (r_d, f_d) = (
+        run_once(dev, kind, *world, P_LARGE, SEEDS[0], 400)
+        for kind in ("eager", "deferred-per-tick"))
+    same = np.array_equal(r_d.est_pose, r_e.est_pose) and all(
+        torch.equal(getattr(f_d, f), getattr(f_e, f)) for f in FIELDS)
+    if not same:
+        np.testing.assert_allclose(r_d.est_pose, r_e.est_pose, **TOL_PATHS)
+        for f in FIELDS:
+            torch.testing.assert_close(getattr(f_d, f), getattr(f_e, f),
+                                       **TOL_PATHS)
+    held = "bit-identical" if same else "within rtol/atol 1e-4"
+    print(f"deferred (per-tick predict) vs eager, P={P_LARGE} "
+          f"seed={SEEDS[0]} 400 ticks: {held}", flush=True)
+    return held
 
 
 def check_replay(dev) -> None:
-    """Phase 5: a seed replays bit for bit on the card."""
+    """Phase 6: a seed replays bit for bit on the card, on both paths."""
     import numpy as np
 
-    from slam_tpu_torch.config import SlamConfig
-    from slam_tpu_torch.maps import read_map_file
-    from slam_tpu_torch.runtime import Runner
-
-    cfg = SlamConfig.from_ini(INI)
-    slam_map = read_map_file(MAP)
-    poses = [Runner(cfg, slam_map, "FASTSLAM1", n_particles=P_LARGE,
-                    device=dev).run(seed=SEEDS[0], n_ticks=400).est_pose
-             for _ in range(2)]
-    if not np.array_equal(poses[0], poses[1]):
-        raise AssertionError("replay: the same seed gave other estimates")
-    print(f"replay P={P_LARGE} seed={SEEDS[0]}: bit-identical", flush=True)
+    world = dense200()
+    for kind in ("eager", "deferred"):
+        poses = [run_once(dev, kind, *world, P_LARGE, SEEDS[0],
+                          400)[0].est_pose for _ in range(2)]
+        if not np.array_equal(poses[0], poses[1]):
+            raise AssertionError(f"replay ({kind}): the same seed gave "
+                                 "other estimates")
+        print(f"replay {kind} P={P_LARGE} seed={SEEDS[0]}: bit-identical",
+              flush=True)
 
 
 def main() -> int:
@@ -309,6 +523,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke test needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -331,19 +546,36 @@ def main() -> int:
         print(f"kernel {name} ({st['shape']}): {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, max_abs_err {st['max_abs_err']:.3g}"
               f" [{card}]", flush=True)
+    torch.cuda.empty_cache()
 
-    _, counts_a = run_slice(dev, P_SMALL, on=("K2", "G1"), off=("K4", "G2"))
-    _, counts_b = run_slice(dev, P_LARGE, on=("K4", "G2"), off=("K2", "G1"))
-    launches = {"K2": counts_a["K2"], "G1": counts_a["G1"],
-                "K4": counts_b["K4"], "G2": counts_b["G2"]}
+    small = run_slice(dev, "eager-small", dense200(), "eager", P_SMALL,
+                      TICKS, JAX_ANCHOR_ATE_M, on=("K2", "G1"),
+                      off=("K4", "K5", "K6", "G2"))
+    large = run_slice(dev, "eager-large", dense200(), "eager", P_LARGE,
+                      TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
+                      off=("K2", "K5", "K6", "G1"))
+    c5 = run_slice(dev, "config5", config5(), "deferred", C5_P, C5_TICKS,
+                   JAX_CONFIG5_ATE_M, on=("K5", "K6", "G2"),
+                   off=("K2", "G1"), per_superstep=("K6",))
+    check(all(s == 1 for s in c5["host_syncs_per_superstep"]),
+          f"config5: host syncs per superstep {c5['host_syncs_per_superstep']}")
+    run_slice(dev, "deferred-large", dense200(), "deferred", P_LARGE, TICKS,
+              JAX_ANCHOR_ATE_M, on=("K5", "K6"), off=("K2", "G1"))
+    check_deferred_vs_eager(dev)
     check_replay(dev)
 
+    launches = {"K2": small["launches"]["K2"],
+                "G1": small["launches"]["G1"],
+                "K4": large["launches"]["K4"],
+                "G2": large["launches"]["G2"],
+                "K5": c5["launches"]["K5"], "K6": c5["launches"]["K6"]}
     table = [dict(name=name, route="cuda", source=KERNELS[name][0],
                   replaces=KERNELS[name][1], launches=launches[name],
                   max_abs_err=kernel_stats[name]["max_abs_err"],
                   ms=kernel_stats[name]["ms"],
                   plain_ms=kernel_stats[name]["plain_ms"])
-             for name in ("K2", "K4", "G1", "G2")]
+             for name in ("K2", "K4", "G1", "G2", "K5", "K6")]
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,45 +38,9 @@ __global__ void fs1_fused_update_kernel(
     float r11, int K, int L, int P) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  const float x = xv[p];
-  const float y = xv[P + p];
-  const float t = xv[2 * P + p];
-  const long plane = (long)L * P;  // stride between component planes
-  float d = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float z0 = z[2 * k];
-    const float z1 = z[2 * k + 1];
-    const int s = slot[k];
-    if (matched[k] && s >= 0 && s < L) {
-      const long i = (long)s * P + p;
-      const float lx = lm[i], ly = lm[plane + i];
-      const float a00 = lmP[i], a01 = lmP[plane + i],
-                  a11 = lmP[2 * plane + i];
-      const slam::Jacobians J = slam::jacobians_planes(
-          x, y, t, lx, ly, a00, a01, a11, r00, r01, r11);
-      const float v0 = z0 - J.zr;
-      const float v1 = slam::wrap_angle(z1 - J.zb);
-      d += slam::log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11);
-      const slam::Feature f =
-          slam::feature_update_planes(lx, ly, a00, a01, a11, v0, v1, J);
-      lm[i] = f.x;
-      lm[plane + i] = f.y;
-      lmP[i] = f.p00;
-      lmP[plane + i] = f.p01;
-      lmP[2 * plane + i] = f.p11;
-    }
-    const int sn = slot_new[k];
-    if (ok_new[k] && sn >= 0 && sn < L) {
-      const long i = (long)sn * P + p;
-      const slam::Feature f =
-          slam::feature_init_planes(x, y, t, z0, z1, r00, r01, r11);
-      lm[i] = f.x;
-      lm[plane + i] = f.y;
-      lmP[i] = f.p00;
-      lmP[plane + i] = f.p01;
-      lmP[2 * plane + i] = f.p11;
-    }
-  }
+  const float d = slam::fs1_update_column(
+      xv[p], xv[P + p], xv[2 * P + p], lm, lmP, p, P, z, slot, matched,
+      slot_new, ok_new, r00, r01, r11, K, L);
   logw[p] = logw[p] + d;
 }
 

@@ -139,4 +139,53 @@ __device__ __forceinline__ Feature feature_init_planes(
   return f;
 }
 
+// The FastSLAM 1 update of one particle column p, in place on the
+// landmark planes lm [2, L, P] and lmP [3, L, P] (K4's body, which K5
+// runs on the column it has just gathered): for each matched
+// observation k, the likelihood and the 2x2 EKF update of slot[k]; for
+// each ok_new k, the new feature at slot_new[k]. Slots outside [0, L)
+// are dropped. Returns the log-likelihood summed over the matched k.
+__device__ __forceinline__ float fs1_update_column(
+    float x, float y, float t, float* lm, float* lmP, int p, int P,
+    const float* z, const int* slot, const unsigned char* matched,
+    const int* slot_new, const unsigned char* ok_new, float r00, float r01,
+    float r11, int K, int L) {
+  const long plane = (long)L * P;  // stride between component planes
+  float d = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const float z0 = z[2 * k];
+    const float z1 = z[2 * k + 1];
+    const int s = slot[k];
+    if (matched[k] && s >= 0 && s < L) {
+      const long i = (long)s * P + p;
+      const float lx = lm[i], ly = lm[plane + i];
+      const float a00 = lmP[i], a01 = lmP[plane + i],
+                  a11 = lmP[2 * plane + i];
+      const Jacobians J =
+          jacobians_planes(x, y, t, lx, ly, a00, a01, a11, r00, r01, r11);
+      const float v0 = z0 - J.zr;
+      const float v1 = wrap_angle(z1 - J.zb);
+      d += log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11);
+      const Feature f =
+          feature_update_planes(lx, ly, a00, a01, a11, v0, v1, J);
+      lm[i] = f.x;
+      lm[plane + i] = f.y;
+      lmP[i] = f.p00;
+      lmP[plane + i] = f.p01;
+      lmP[2 * plane + i] = f.p11;
+    }
+    const int sn = slot_new[k];
+    if (ok_new[k] && sn >= 0 && sn < L) {
+      const long i = (long)sn * P + p;
+      const Feature f = feature_init_planes(x, y, t, z0, z1, r00, r01, r11);
+      lm[i] = f.x;
+      lm[plane + i] = f.y;
+      lmP[i] = f.p00;
+      lmP[plane + i] = f.p01;
+      lmP[2 * plane + i] = f.p11;
+    }
+  }
+  return d;
+}
+
 }  // namespace slam

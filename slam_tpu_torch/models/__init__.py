@@ -1,9 +1,12 @@
-"""Estimators of the port. FastSLAM 1.0 is ported; the others are
-queued in ROADMAP.md (Queue 1)."""
+"""Estimators of the port. FastSLAM 1.0 is ported, eager and with
+deferred resampling; the others are queued in ROADMAP.md (Queue 1)."""
 
-from slam_tpu_torch.models.fastslam1 import FastSlam1
+from slam_tpu_torch.models.fastslam1 import FastSlam1, FastSlam1Deferred
 from slam_tpu_torch.models.particles import (
+    DeferredState,
     ParticleState,
+    deferred_state_from_numpy,
+    deferred_state_to_numpy,
     estimate_position,
     gather_particles,
     init_particles,
@@ -25,6 +28,8 @@ def make_estimator(method: str, config, n_map_landmarks: int, device=None):
     return cls(config, n_map_landmarks, device=device)
 
 
-__all__ = ["ESTIMATORS", "FastSlam1", "ParticleState", "estimate_position",
+__all__ = ["ESTIMATORS", "DeferredState", "FastSlam1", "FastSlam1Deferred",
+           "ParticleState", "deferred_state_from_numpy",
+           "deferred_state_to_numpy", "estimate_position",
            "gather_particles", "init_particles", "make_estimator",
            "state_from_numpy", "state_to_numpy"]

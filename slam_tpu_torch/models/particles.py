@@ -77,6 +77,36 @@ def state_to_numpy(state: ParticleState) -> dict:
     return {f: getattr(state, f).detach().cpu().numpy() for f in FIELDS}
 
 
+class DeferredState(NamedTuple):
+    """The deferred-resample FastSLAM 1 carry (counterpart:
+    slam_tpu.models.fastslam1.DeferredState). ``ps`` holds the pose and
+    weight rows after the last resample, and the landmark planes from
+    before it; ``S`` [P] int32 are the pending offspring bounds
+    (arange(1, P + 1) when nothing is pending); ``pending`` is that
+    fact, known on the host. The JAX carry's per-block window metadata
+    (lo, nch, ident) is the TPU kernel's and has no counterpart."""
+    ps: ParticleState
+    S: torch.Tensor
+    pending: bool
+
+
+def deferred_state_from_numpy(arrays, device=None) -> DeferredState:
+    """DeferredState from the JAX carry's fields: ``arrays["ps"]`` a
+    mapping of ParticleState fields, ``arrays["S"]`` the bounds; other
+    entries (the window metadata) are ignored."""
+    S = np.asarray(arrays["S"], dtype=np.int32)
+    identity = np.arange(1, S.shape[0] + 1, dtype=np.int32)
+    return DeferredState(ps=state_from_numpy(arrays["ps"], device),
+                         S=torch.from_numpy(S.copy()).to(device),
+                         pending=not np.array_equal(S, identity))
+
+
+def deferred_state_to_numpy(state: DeferredState) -> dict:
+    """The inverse of ``deferred_state_from_numpy``."""
+    return {"ps": state_to_numpy(state.ps),
+            "S": state.S.detach().cpu().numpy()}
+
+
 def estimate_position(state: ParticleState,
                       mode: str = "weighted") -> torch.Tensor:
     """Pose estimate [3]: x/y by "mean", per-axis "median" or

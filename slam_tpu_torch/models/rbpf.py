@@ -194,6 +194,15 @@ def add_new_features(state: ParticleState, z, ids, is_new, R
     return state._replace(n=state.n + ok.sum(dtype=torch.int32))
 
 
+def resample_gate(logw, n_min: float, do_resample: bool
+                  ) -> tuple[torch.Tensor, bool]:
+    """(normalized log weights, whether to resample): the Neff gate,
+    read on the host (one counted sync) unless resampling is off."""
+    logw_n = rs.normalize_log_weights(logw)
+    neff = torch.exp(-torch.logsumexp(2.0 * logw_n, dim=-1))
+    return logw_n, bool(do_resample) and host_bool(neff < n_min)
+
+
 def resample(state: ParticleState, n_min: float, do_resample: bool,
              uniform_at: rs.UniformAt) -> ParticleState:
     """Neff-gated stratified resampling and ancestor gather. The gate
@@ -201,9 +210,8 @@ def resample(state: ParticleState, n_min: float, do_resample: bool,
     G2 from the offspring bounds if P % BOUNDS_ALIGN == 0, else on G1 from the
     ancestor vector, as the JAX package dispatches."""
     n = state.n_particles
-    logw_n = rs.normalize_log_weights(state.logw)
-    neff = torch.exp(-torch.logsumexp(2.0 * logw_n, dim=-1))
-    if not (do_resample and host_bool(neff < n_min)):
+    logw_n, fired = resample_gate(state.logw, n_min, do_resample)
+    if not fired:
         return state._replace(logw=logw_n)
     if n % BOUNDS_ALIGN == 0:
         S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n,

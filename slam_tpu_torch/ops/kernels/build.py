@@ -55,6 +55,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "slam_fs1_observe": [_P] * 8 + [_F] * 3 + [_I] * 2 + [_P] * 6 + [_P],
     "slam_fs1_fused_update": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
+    "slam_fs1_resample_update": [_P] * 12 + [_F] * 3 + [_I] * 3 + [_P],
+    "slam_fs1_predict_multi": [_P] * 3 + [_F] * 5 + [_I] * 3 + [_P],
     "slam_sorted_gather": [GatherArrays, _P, _I, _I, _P],
     "slam_bounds_gather": [GatherArrays, _P, _I, _P],
     "slam_gather_max_arrays": [],

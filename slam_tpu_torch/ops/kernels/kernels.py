@@ -1,4 +1,4 @@
-"""K2 and K4: the FastSLAM 1 observation updates (counterpart:
+"""K2, K4 and K5: the FastSLAM 1 observation updates (counterpart:
 slam_tpu.ops.pallas.kernels).
 
 Each kernel has a wrapper that dispatches on the device of its tensors:
@@ -15,6 +15,7 @@ import torch
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops.kernels import build
+from slam_tpu_torch.ops.kernels.gather import bounds_gather_multi_plain
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -160,3 +161,63 @@ def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
 
 
 fused_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: fused resample + update into fresh landmark planes
+# ---------------------------------------------------------------------------
+
+def resample_update_plain(xv, logw, lm, lm_P, S, z, slot, matched,
+                          slot_new, ok_new, R):
+    """Plain twin of K5: gather the landmark planes by offspring bounds
+    S (G2's twin), then K4's twin on the gathered planes. logw [P] is
+    updated in place; returns the new (lm [2, L, P], lm_P [3, L, P])."""
+    _, L, P = lm.shape
+    lm_g, lmP_g = bounds_gather_multi_plain(
+        [lm.reshape(2 * L, P), lm_P.reshape(3 * L, P)], S)
+    lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
+    fused_update_plain(xv, logw, lm_g, lmP_g, z, slot, matched, slot_new,
+                       ok_new, R)
+    return lm_g, lmP_g
+
+
+def resample_update(xv, logw, lm, lm_P, S, z, slot, matched, slot_new,
+                    ok_new, R):
+    """K5 (replaces kernels.py:fs1_resample_update_tpu): K4 applied to
+    the landmark planes gathered by the pending offspring bounds S [P]
+    (int32, non-decreasing, S[-1] == P). xv and logw are the already
+    permuted rows; logw is updated in place. Returns fresh (lm, lm_P):
+    the kernel cannot run in place. The twin on the CPU, the CUDA kernel
+    csrc/resample_update.cu on the card."""
+    if not xv.is_cuda:
+        return resample_update_plain(xv, logw, lm, lm_P, S, z, slot,
+                                     matched, slot_new, ok_new, R)
+    _, L, P = lm.shape
+    K = z.shape[0]
+    _check_cuda(dict(xv=xv, logw=logw, lm=lm, lm_P=lm_P, S=S, z=z,
+                     slot=slot, matched=matched, slot_new=slot_new,
+                     ok_new=ok_new),
+                dict(S=torch.int32, slot=torch.int32,
+                     slot_new=torch.int32, matched=torch.bool,
+                     ok_new=torch.bool))
+    _require(xv.shape == (3, P) and logw.shape == (P,) and S.shape == (P,)
+             and lm.shape == (2, L, P) and lm_P.shape == (3, L, P)
+             and z.shape == (K, 2)
+             and all(t.shape == (K,)
+                     for t in (slot, matched, slot_new, ok_new)),
+             "resample_update: shapes do not match xv [3, P], logw [P], "
+             "S [P], lm [2, L, P], lm_P [3, L, P], z [K, 2], slots [K]")
+    lm_o, lmP_o = torch.empty_like(lm), torch.empty_like(lm_P)
+    lib = build.load_library()
+    err = lib.slam_fs1_resample_update(
+        xv.data_ptr(), logw.data_ptr(), lm.data_ptr(), lm_P.data_ptr(),
+        lm_o.data_ptr(), lmP_o.data_ptr(), S.data_ptr(), z.data_ptr(),
+        slot.data_ptr(), matched.data_ptr(), slot_new.data_ptr(),
+        ok_new.data_ptr(), *pk.sym2_host(R), K, L, P,
+        torch.cuda.current_stream(xv.device).cuda_stream)
+    build.check(err, "slam_fs1_resample_update")
+    resample_update.launches += 1
+    return lm_o, lmP_o
+
+
+resample_update.launches = 0

@@ -3,11 +3,14 @@ slam_tpu.runtime.loop, whose superstep is one ``lax.scan`` body).
 
 A superstep is ``steps_per_observe`` control ticks — truth step, noisy
 controls, particle predict, dead-reckoning odometry — then one
-observation and the estimator update. Everything stays on the run's
-device; the per-superstep traces are written into preallocated device
-buffers and copied to the host once, at the end. The only host syncs
-inside the loop are the estimator's gates (``rbpf.host_bool``), counted
-in ``RunResult.host_syncs``.
+observation and the estimator update. An estimator with
+``predict_multi`` (``FastSlam1Deferred``) at a particle count that is a
+multiple of 1024 predicts all the ticks of a superstep in one call
+after them, as the JAX runner's ``_superstep_multi`` does. Everything
+stays on the run's device; the per-superstep traces are written into
+preallocated device buffers and copied to the host once, at the end.
+The only host syncs inside the loop are the estimator's gates
+(``rbpf.host_bool``), counted in ``RunResult.host_syncs``.
 """
 
 from __future__ import annotations
@@ -43,19 +46,35 @@ class RunResult(NamedTuple):
     host_syncs: int            # device-to-host reads inside the loop
 
 
+MULTI_ALIGN = 1024   # predict_multi when P is a multiple of this
+
+
 class Runner:
-    """Config + map + method bound run driver on one device."""
+    """Runs one config, map and method on one device.
+
+    ``estimator``: a prebuilt estimator with the same interface (e.g.
+    ``FastSlam1Deferred``) in place of the method's default; the run
+    then takes place on its device unless ``device`` says otherwise."""
 
     def __init__(self, config: SlamConfig, slam_map: SlamMap,
                  method: str = "FASTSLAM1", n_particles: int | None = None,
-                 device=None):
+                 device=None, estimator=None):
         self.config = config
         self.map = slam_map
         self.method = method.upper()
+        if device is None and estimator is not None:
+            device = estimator.device
         self.device = torch.device(device or "cpu")
+        if estimator is None:
+            estimator = make_estimator(self.method, config,
+                                       slam_map.n_landmarks,
+                                       device=self.device)
+        elif ((estimator.device.type, estimator.device.index or 0)
+              != (self.device.type, self.device.index or 0)):
+            raise ValueError(f"the estimator is on {estimator.device}, "
+                             f"the run on {self.device}")
         self.sim = Simulator(config, slam_map, device=self.device)
-        self.est = make_estimator(self.method, config, slam_map.n_landmarks,
-                                  device=self.device)
+        self.est = estimator
         self.n_particles = n_particles
 
     def estimate_run_ticks(self, cap: int | None = None) -> int:
@@ -75,6 +94,40 @@ class Runner:
         period = cfg.steps_per_observe
         return max(period, ((idx + period - 1) // period) * period)
 
+    def _control_tick(self, sim_state, dr):
+        """One truth step with its noisy controls, and the dead-reckoning
+        odometry over the superstep so far."""
+        cfg = self.config
+        sim_state, controls = self.sim.control_step(sim_state)
+        dr = predict_true_position(dr, controls.v_noisy, controls.g_noisy,
+                                   cfg.WHEELBASE, cfg.DT_CONTROLS)
+        return sim_state, controls, dr
+
+    def _superstep(self, sim_state, est_state, gen):
+        """The control ticks of a superstep, each with its particle
+        predict: (sim state, estimator state, odometry)."""
+        dr = torch.zeros(3, dtype=torch.float32, device=self.device)
+        for _ in range(self.config.steps_per_observe):
+            sim_state, controls, dr = self._control_tick(sim_state, dr)
+            # FastSLAM observes the TRUE heading per tick.
+            phi = sim_state.vehicle.pose[2]
+            est_state = self.est.predict(est_state, gen, controls.v_noisy,
+                                         controls.g_noisy, phi)
+        return sim_state, est_state, dr
+
+    def _superstep_multi(self, sim_state, est_state, gen):
+        """The control ticks run the simulator only and collect the noisy
+        controls as a [T, 2] device tensor; then one ``predict_multi``
+        call advances the particles through every tick."""
+        dr = torch.zeros(3, dtype=torch.float32, device=self.device)
+        vs, gs = [], []
+        for _ in range(self.config.steps_per_observe):
+            sim_state, controls, dr = self._control_tick(sim_state, dr)
+            vs.append(controls.v_noisy)
+            gs.append(controls.g_noisy)
+        ctl = torch.stack([torch.stack(vs), torch.stack(gs)], dim=1)
+        return sim_state, self.est.predict_multi(est_state, gen, ctl), dr
+
     def run(self, seed: int = 0, n_ticks: int | None = None) -> RunResult:
         cfg = self.config
         period = cfg.steps_per_observe
@@ -91,6 +144,10 @@ class Runner:
 
         sim_state = self.sim.init(seed=seed or cfg.SWITCH_SEED_RANDOM)
         est_state = self.est.init(self.n_particles)
+        P = getattr(est_state, "ps", est_state).n_particles
+        superstep = (self._superstep_multi
+                     if hasattr(self.est, "predict_multi")
+                     and P % MULTI_ALIGN == 0 else self._superstep)
         gen = self.sim.make_generator(seed + 1)
         K = self.sim.max_obs
         f32 = dict(dtype=torch.float32, device=dev)
@@ -109,17 +166,7 @@ class Runner:
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
         for i in range(T):
-            dr = torch.zeros(3, **f32)
-            for _ in range(period):
-                sim_state, controls = self.sim.control_step(sim_state)
-                # FastSLAM observes the TRUE heading per tick.
-                phi = sim_state.vehicle.pose[2]
-                est_state = self.est.predict(est_state, gen,
-                                             controls.v_noisy,
-                                             controls.g_noisy, phi)
-                dr = predict_true_position(dr, controls.v_noisy,
-                                           controls.g_noisy,
-                                           cfg.WHEELBASE, cfg.DT_CONTROLS)
+            sim_state, est_state, dr = superstep(sim_state, est_state, gen)
             sim_state, obs = self.sim.observe_step(sim_state)
             est_state = self.est.update(est_state, gen, obs.z, obs.ids,
                                         obs.mask)
