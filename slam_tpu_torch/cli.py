@@ -1,9 +1,9 @@
 """Command-line shell of the port (counterpart: slam_tpu.cli).
 
-Flag-compatible with the JAX package's CLI for the ported slice:
-``-m <map.mat>``, ``-n <name>``, ``-method FASTSLAM1``, ``-particles``,
-``-ticks``, ``-seed``, ``-out``, and any config key as ``-KEY value``.
-The map's ``<map>.ini`` is loaded when it exists. ``-device`` picks
+Flag-compatible with the JAX package's CLI for the ported slices:
+``-m <map.mat>``, ``-n <name>``, ``-method FASTSLAM1`` or ``FASTSLAM2``,
+``-particles``, ``-ticks``, ``-seed``, ``-out``, and any config key as
+``-KEY value``. The map's ``<map>.ini`` is loaded when it exists. ``-device`` picks
 ``cuda`` or ``cpu``; by default ``cuda`` when a card is present. The
 device is printed with the banner.
 """
@@ -21,7 +21,7 @@ slam_tpu_torch backend — landmark SLAM in PyTorch / CUDA
 Usage: python -m slam_tpu_torch [options]
     -m <file>        map file (.mat text format)
     -n <name>        simulation name (report directory)
-    -method <name>   FASTSLAM1 (the other methods are not ported yet)
+    -method <name>   FASTSLAM1 | FASTSLAM2 (EKF1 is not ported yet)
     -particles <N>   particle count
     -ticks <N>       max control ticks
     -seed <N>        PRNG seed

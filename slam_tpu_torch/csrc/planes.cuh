@@ -139,6 +139,58 @@ __device__ __forceinline__ Feature feature_init_planes(
   return f;
 }
 
+// Packed symmetric 3x3, the FastSLAM 2 pose covariance: (00, 01, 02,
+// 11, 12, 22).
+struct Sym3 {
+  float a, b, c, d, e, f;
+};
+
+__device__ __forceinline__ void sym3_mul_vec(const Sym3& P, float v0,
+                                             float v1, float v2, float& o0,
+                                             float& o1, float& o2) {
+  o0 = P.a * v0 + P.b * v1 + P.c * v2;
+  o1 = P.b * v0 + P.d * v1 + P.e * v2;
+  o2 = P.c * v0 + P.e * v1 + P.f * v2;
+}
+
+// One FastSLAM 2 proposal-refinement step in covariance form
+// (ops/planes.py:refine_pose_planes): K = Pv Hv' (Sf + Hv Pv Hv')^-1,
+// dx = K v, Pv <- Pv - K (Hv Pv)'. Hv = [[hv00, hv01, 0], [hv10, hv11,
+// -1]] with hv = -(a, b, c, e) of the feature Jacobian. Updates Pv in
+// place and returns the pose step in dx0..dx2.
+__device__ __forceinline__ void refine_pose_planes(const Jacobians& J,
+                                                   Sym3& Pv, float v0,
+                                                   float v1, float& dx0,
+                                                   float& dx1, float& dx2) {
+  const float hv00 = -J.a, hv01 = -J.b, hv10 = -J.c, hv11 = -J.e;
+  float ua0, ua1, ua2, ub0, ub1, ub2;
+  sym3_mul_vec(Pv, hv00, hv01, 0.0f, ua0, ua1, ua2);
+  sym3_mul_vec(Pv, hv10, hv11, -1.0f, ub0, ub1, ub2);
+  const float t00 = hv00 * ua0 + hv01 * ua1;
+  const float t01 = hv00 * ub0 + hv01 * ub1;
+  const float t11 = hv10 * ub0 + hv11 * ub1 - ub2;
+  const float s00 = J.s00 + t00;
+  const float s01 = J.s01 + t01;
+  const float s11 = J.s11 + t11;
+  const float det = fmaxf(s00 * s11 - s01 * s01, 1e-30f);
+  const float i00 = s11 / det, i01 = -s01 / det, i11 = s00 / det;
+  const float k00 = ua0 * i00 + ub0 * i01;
+  const float k01 = ua0 * i01 + ub0 * i11;
+  const float k10 = ua1 * i00 + ub1 * i01;
+  const float k11 = ua1 * i01 + ub1 * i11;
+  const float k20 = ua2 * i00 + ub2 * i01;
+  const float k21 = ua2 * i01 + ub2 * i11;
+  dx0 = k00 * v0 + k01 * v1;
+  dx1 = k10 * v0 + k11 * v1;
+  dx2 = k20 * v0 + k21 * v1;
+  Pv.a = Pv.a - (k00 * ua0 + k01 * ub0);
+  Pv.b = Pv.b - (k00 * ua1 + k01 * ub1);
+  Pv.c = Pv.c - (k00 * ua2 + k01 * ub2);
+  Pv.d = Pv.d - (k10 * ua1 + k11 * ub1);
+  Pv.e = Pv.e - (k10 * ua2 + k11 * ub2);
+  Pv.f = Pv.f - (k20 * ua2 + k21 * ub2);
+}
+
 // The FastSLAM 1 update of one particle column p, in place on the
 // landmark planes lm [2, L, P] and lmP [3, L, P] (K4's body, which K5
 // runs on the column it has just gathered): for each matched

@@ -1,7 +1,9 @@
-"""Estimators of the port. FastSLAM 1.0 is ported, eager and with
-deferred resampling; the others are queued in ROADMAP.md (Queue 1)."""
+"""Estimators of the port. FastSLAM 1.0 (eager and with deferred
+resampling) and FastSLAM 2.0 are ported; the others are queued in
+ROADMAP.md (Queue 1)."""
 
 from slam_tpu_torch.models.fastslam1 import FastSlam1, FastSlam1Deferred
+from slam_tpu_torch.models.fastslam2 import FastSlam2
 from slam_tpu_torch.models.particles import (
     DeferredState,
     ParticleState,
@@ -14,7 +16,7 @@ from slam_tpu_torch.models.particles import (
     state_to_numpy,
 )
 
-ESTIMATORS = {"FASTSLAM1": FastSlam1}
+ESTIMATORS = {"FASTSLAM1": FastSlam1, "FASTSLAM2": FastSlam2}
 
 
 def make_estimator(method: str, config, n_map_landmarks: int, device=None):
@@ -29,7 +31,7 @@ def make_estimator(method: str, config, n_map_landmarks: int, device=None):
 
 
 __all__ = ["ESTIMATORS", "DeferredState", "FastSlam1", "FastSlam1Deferred",
-           "ParticleState", "deferred_state_from_numpy",
+           "FastSlam2", "ParticleState", "deferred_state_from_numpy",
            "deferred_state_to_numpy", "estimate_position",
            "gather_particles", "init_particles", "make_estimator",
            "state_from_numpy", "state_to_numpy"]

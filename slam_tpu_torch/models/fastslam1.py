@@ -61,11 +61,13 @@ def fs1_predict(state: ParticleState, generator: torch.Generator, vn, gn,
                                                   wheelbase, dt))
 
 
-def fs1_observe(state: ParticleState, z, slot, matched, R
+def fs1_observe(state: ParticleState, z, slot, matched, R, gathered=None
                 ) -> ParticleState:
-    """Gather the matched landmark planes, run K2 on them, scatter the
-    updated planes back (in place) and apply the weight delta."""
-    gathered = rbpf.gather_landmarks(state, slot)
+    """Gather the matched landmark planes (unless ``gathered`` holds
+    them), run K2 on them, scatter the updated planes back (in place)
+    and apply the weight delta."""
+    if gathered is None:
+        gathered = rbpf.gather_landmarks(state, slot)
     dlogw, nx, ny, np00, np01, np11 = observe(state.xv, *gathered, z,
                                               matched, R)
     rbpf.scatter_slots(state.lm, slot, torch.stack([nx, ny]), matched)
@@ -83,7 +85,18 @@ def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
     assoc, is_new = rbpf.associate_known(state, ids, zmask)
     matched = assoc >= 0
     slot = torch.where(matched, assoc, 0).to(torch.int32)
+    return update_at_pose(state, z, ids, slot, matched, is_new, R, n_min,
+                          uniform_at, do_resample=do_resample)
 
+
+def update_at_pose(state: ParticleState, z, ids, slot, matched, is_new, R,
+                   n_min: float, uniform_at: rs.UniformAt, *,
+                   do_resample: bool = True, gathered=None
+                   ) -> ParticleState:
+    """The eager update at the state's poses, after the association:
+    K4 in place when P % 128 == 0, else K2 on the matched planes (the
+    ``gathered`` ones when given) and ``add_new_features``; then the
+    Neff-gated resample. Shared by FastSLAM 1 and 2."""
     if state.n_particles % FUSED_ALIGN == 0:
         slot_new, ok = rbpf.new_slots(state, is_new)
         fused_update(state.xv, state.logw, state.lm, state.lm_P, z, slot,
@@ -91,7 +104,7 @@ def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
         rbpf.set_table(state.da_table, ids, slot_new, ok)
         state = state._replace(n=state.n + ok.sum(dtype=torch.int32))
     else:
-        state = fs1_observe(state, z, slot, matched, R)
+        state = fs1_observe(state, z, slot, matched, R, gathered)
         state = rbpf.add_new_features(state, z, ids, is_new, R)
     return rbpf.resample(state, n_min, do_resample, uniform_at)
 

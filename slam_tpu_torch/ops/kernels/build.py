@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``slam_tpu_torch/csrc``.
 
-The ``.cu`` sources are compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds, not minutes). The library lands in
+Each ``.cu`` source is compiled by its own ``nvcc``, all of them at
+once, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes). The library lands in
 ``slam_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags: editing a source rebuilds it on first use, and an
 unchanged tree reuses it.
@@ -30,7 +31,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # divisions. --fmad=false keeps a*b+c as two rounded operations, as the
 # twins compute it, so kernel and twin differ only by libm rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 MAX_GATHER_ARRAYS = 8  # kMaxArrays in csrc/gather.cu
 
@@ -57,6 +58,9 @@ SIGNATURES = {
     "slam_fs1_fused_update": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
     "slam_fs1_resample_update": [_P] * 12 + [_F] * 3 + [_I] * 3 + [_P],
     "slam_fs1_predict_multi": [_P] * 3 + [_F] * 5 + [_I] * 3 + [_P],
+    "slam_fs2_predict_multi": [_P] * 4 + [_F] * 8 + [_I] * 3 + [_P],
+    "slam_fs2_refine": [_P] * 9 + [_F] * 3 + [_I] * 2 + [_P] * 2 + [_P],
+    "slam_jacobians": [_P] * 6 + [_F] * 3 + [_I] * 2 + [_P] + [_P],
     "slam_sorted_gather": [GatherArrays, _P, _I, _I, _P],
     "slam_bounds_gather": [GatherArrays, _P, _I, _P],
     "slam_gather_max_arrays": [],
@@ -107,21 +111,29 @@ def build_library(nvcc: str | None = None,
             "/usr/local/cuda/bin): the CUDA kernels of slam_tpu_torch "
             "are built from csrc/ on a machine with the CUDA toolkit")
     build_dir.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: concurrent builders never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    # Compile and link in a private directory, then rename: concurrent
+    # builders never load a half-written library.
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed (exit {proc.returncode}): "
+                    f"{' '.join(cmd)}\n{out}")
+        so = os.path.join(tmp, lib.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"nvcc failed (exit {proc.returncode}): {' '.join(link)}\n"
                 f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(so, lib)
     return lib
 
 

@@ -1,4 +1,5 @@
-"""K2, K4 and K5: the FastSLAM 1 observation updates (counterpart:
+"""K1, K2, K3, K4 and K5: the Jacobians, the FastSLAM 1 observation
+updates and the FastSLAM 2 proposal refinement (counterpart:
 slam_tpu.ops.pallas.kernels).
 
 Each kernel has a wrapper that dispatches on the device of its tensors:
@@ -51,6 +52,39 @@ def _observe_math(xv, gathered, z, matched, R):
 
 
 # ---------------------------------------------------------------------------
+# K1: batched Jacobians on pre-gathered planes
+# ---------------------------------------------------------------------------
+
+def jacobians(xv, lmx, lmy, p00, p01, p11, R) -> pk.JacobianPlanes:
+    """K1 (replaces kernels.py:jacobians_tpu): the range-bearing model at
+    each particle's pose xv [3, P] against gathered landmark planes
+    [K, P], as a JacobianPlanes of [K, P] planes. The twin,
+    ``pk.jacobians_planes``, on the CPU; csrc/jacobians.cu on the
+    card."""
+    if not xv.is_cuda:
+        return pk.jacobians_planes(xv[0:1], xv[1:2], xv[2:3], lmx, lmy,
+                                   p00, p01, p11, *pk.sym2_host(R))
+    K, P = lmx.shape
+    _check_cuda(dict(xv=xv, lmx=lmx, lmy=lmy, p00=p00, p01=p01, p11=p11),
+                {})
+    _require(xv.shape == (3, P) and 0 < K <= 65535
+             and all(t.shape == (K, P) for t in (lmy, p00, p01, p11)),
+             "jacobians: shapes do not match xv [3, P], planes [K, P] "
+             "with 0 < K <= 65535")
+    out = torch.empty((13, K, P), dtype=torch.float32, device=xv.device)
+    err = build.load_library().slam_jacobians(
+        xv.data_ptr(), lmx.data_ptr(), lmy.data_ptr(), p00.data_ptr(),
+        p01.data_ptr(), p11.data_ptr(), *pk.sym2_host(R), K, P,
+        out.data_ptr(), torch.cuda.current_stream(xv.device).cuda_stream)
+    build.check(err, "slam_jacobians")
+    jacobians.launches += 1
+    return pk.JacobianPlanes(*out.unbind(0))
+
+
+jacobians.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K2: fused observe on pre-gathered planes
 # ---------------------------------------------------------------------------
 
@@ -94,6 +128,64 @@ def observe(xv, lmx, lmy, p00, p01, p11, z, matched, R):
 
 
 observe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: FastSLAM 2 proposal refinement on pre-gathered planes
+# ---------------------------------------------------------------------------
+
+def fs2_refine_plain(xv, Pv, lmx, lmy, p00, p01, p11, z, matched, R):
+    """Plain twin of K3: the sequential proposal refinement over the K
+    observations, in order. For each k, the Jacobians at the current
+    pose, the wrapped innovation and one ``pk.refine_pose_planes`` step,
+    kept where matched[k]. xv [3, P], Pv [6, P] packed symmetric,
+    gathered planes [K, P], z [K, 2], matched [K] bool. Returns fresh
+    (xv_r [3, P], Pv_r [6, P])."""
+    r = pk.sym2_host(R)
+    x = tuple(xv)
+    S = tuple(Pv)
+    for k in range(z.shape[0]):
+        J = pk.jacobians_planes(x[0], x[1], x[2], lmx[k], lmy[k], p00[k],
+                                p01[k], p11[k], *r)
+        v0 = z[k, 0] - J.zr
+        v1 = wrap_angle(z[k, 1] - J.zb)
+        (dx0, dx1, dx2), S_new = pk.refine_pose_planes(J, S, v0, v1)
+        keep = matched[k]
+        x = (torch.where(keep, x[0] + dx0, x[0]),
+             torch.where(keep, x[1] + dx1, x[1]),
+             torch.where(keep, wrap_angle(x[2] + dx2), x[2]))
+        S = tuple(torch.where(keep, n, o) for n, o in zip(S_new, S))
+    return torch.stack(x), torch.stack(S)
+
+
+def fs2_refine(xv, Pv, lmx, lmy, p00, p01, p11, z, matched, R):
+    """K3 (replaces kernels.py:fs2_refine_tpu): the twin on the CPU, the
+    CUDA kernel csrc/refine.cu on the card. Returns fresh (xv_r, Pv_r);
+    the inputs are not written."""
+    if not xv.is_cuda:
+        return fs2_refine_plain(xv, Pv, lmx, lmy, p00, p01, p11, z, matched,
+                                R)
+    K, P = lmx.shape
+    _check_cuda(dict(xv=xv, Pv=Pv, lmx=lmx, lmy=lmy, p00=p00, p01=p01,
+                     p11=p11, z=z, matched=matched),
+                dict(matched=torch.bool))
+    _require(xv.shape == (3, P) and Pv.shape == (6, P)
+             and z.shape == (K, 2) and matched.shape == (K,)
+             and all(t.shape == (K, P) for t in (lmy, p00, p01, p11)),
+             "fs2_refine: shapes do not match xv [3, P], Pv [6, P], "
+             "planes [K, P], z [K, 2], matched [K]")
+    xv_r, Pv_r = torch.empty_like(xv), torch.empty_like(Pv)
+    err = build.load_library().slam_fs2_refine(
+        xv.data_ptr(), Pv.data_ptr(), lmx.data_ptr(), lmy.data_ptr(),
+        p00.data_ptr(), p01.data_ptr(), p11.data_ptr(), z.data_ptr(),
+        matched.data_ptr(), *pk.sym2_host(R), K, P, xv_r.data_ptr(),
+        Pv_r.data_ptr(), torch.cuda.current_stream(xv.device).cuda_stream)
+    build.check(err, "slam_fs2_refine")
+    fs2_refine.launches += 1
+    return xv_r, Pv_r
+
+
+fs2_refine.launches = 0
 
 
 # ---------------------------------------------------------------------------

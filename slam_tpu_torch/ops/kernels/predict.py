@@ -1,16 +1,18 @@
-"""K6: all control ticks of a superstep's FastSLAM 1 predict in one
-launch, with the random draws made inside the kernel (counterpart:
-slam_tpu.ops.pallas.kernels.fs1_predict_multi_tpu).
+"""K6 and K6b: all control ticks of a superstep's FastSLAM 1 predict
+(K6), or FastSLAM 2 predict with its pose covariance (K6b), in one
+launch, with the random draws made inside the kernel (counterparts:
+slam_tpu.ops.pallas.kernels.fs1_predict_multi_tpu and
+fs2_predict_multi_tpu).
 
-The TPU kernel draws from the TPU's hardware PRNG. The port draws from
+The TPU kernels draw from the TPU's hardware PRNG. The port draws from
 Philox4x32-10 (``csrc/philox.cuh``): particle p at tick t takes words 0
 and 1 of the block at counter (p, t, 0, 0) under the key given by the
 two seed words. ``philox4x32`` below is the same generator in torch, so
-the plain twin reproduces the kernel's stream draw for draw.
+the plain twins reproduce the kernels' stream draw for draw.
 
 A CPU tensor goes to the twin, a CUDA tensor to ``csrc/predict.cu``;
-nothing falls back. The wrapper counts its launches in
-``fs1_predict_multi.launches``.
+nothing falls back. Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 
 import torch
 
+from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops.kernels import build
 from slam_tpu_torch.ops.kernels.kernels import _check_cuda, _require
 
@@ -76,6 +79,18 @@ def normal_pair(n: int, t: int, seed: torch.Tensor):
     return r * torch.cos(_TWO_PI * u2), r * torch.sin(_TWO_PI * u2)
 
 
+def _tick_controls(controls, t: int, P: int, seed, factor, add_noise):
+    """(V [P], G [P]) at tick t: the nominal controls of row t, or with
+    ``add_noise`` their sample ~ N((vn, gn), L L') from the Philox
+    stream, L = chol(Q) given as ``factor`` (l00, l10, l11)."""
+    vn, gn = controls[t, 0], controls[t, 1]
+    if not add_noise:
+        return vn.expand(P), gn.expand(P)
+    l00, l10, l11 = factor
+    e0, e1 = normal_pair(P, t, seed)
+    return vn + l00 * e0, gn + l10 * e0 + l11 * e1
+
+
 def fs1_predict_multi_plain(xv, seed, controls, Q, *, wheelbase: float,
                             dt: float, add_noise: bool = True):
     """Plain twin of K6, in place on xv [3, P] like the kernel: for each
@@ -90,17 +105,11 @@ def fs1_predict_multi_plain(xv, seed, controls, Q, *, wheelbase: float,
         propagate_poses,
     )
 
-    l00, l10, l11 = control_noise_factor(Q)
+    factor = control_noise_factor(Q)
     P = xv.shape[1]
     cur = xv
     for t in range(controls.shape[0]):
-        vn, gn = controls[t, 0], controls[t, 1]
-        if add_noise:
-            e0, e1 = normal_pair(P, t, seed)
-            V = vn + l00 * e0
-            G = gn + l10 * e0 + l11 * e1
-        else:
-            V, G = vn.expand(P), gn.expand(P)
+        V, G = _tick_controls(controls, t, P, seed, factor, add_noise)
         cur = propagate_poses(cur, V, G, wheelbase, dt)
     xv.copy_(cur)
     return xv
@@ -139,3 +148,59 @@ def fs1_predict_multi(xv, seed, controls, Q, *, wheelbase: float,
 
 
 fs1_predict_multi.launches = 0
+
+
+def fs2_predict_multi_plain(xv, Pv, seed, controls, Q, *, wheelbase: float,
+                            dt: float, add_noise: bool = True):
+    """Plain twin of K6b, in place on xv [3, P] and Pv [6, P] like the
+    kernel: per tick, the controls of ``fs1_predict_multi_plain`` (the
+    same Philox draws), then the FastSLAM 2 pose and covariance step
+    (``models.fastslam2.propagate_pose_covariance``)."""
+    # Imported here, as in fs1_predict_multi_plain.
+    from slam_tpu_torch.models.fastslam2 import propagate_pose_covariance
+    from slam_tpu_torch.models.rbpf import control_noise_factor
+
+    factor = control_noise_factor(Q)
+    P = xv.shape[1]
+    cur_xv, cur_Pv = xv, Pv
+    for t in range(controls.shape[0]):
+        V, G = _tick_controls(controls, t, P, seed, factor, add_noise)
+        cur_xv, cur_Pv = propagate_pose_covariance(cur_xv, cur_Pv, V, G, Q,
+                                                   wheelbase, dt)
+    xv.copy_(cur_xv)
+    Pv.copy_(cur_Pv)
+    return xv, Pv
+
+
+def fs2_predict_multi(xv, Pv, seed, controls, Q, *, wheelbase: float,
+                      dt: float, add_noise: bool = True):
+    """K6b (replaces kernels.py:fs2_predict_multi_tpu): T ticks of the
+    FastSLAM 2 predict on xv [3, P] and Pv [6, P], in place. Arguments
+    as ``fs1_predict_multi``; the kernel takes (chol Q, Q) as (l00, l10,
+    l11, q00, q01, q11), as the TPU kernel's q_row."""
+    if not xv.is_cuda:
+        return fs2_predict_multi_plain(xv, Pv, seed, controls, Q,
+                                       wheelbase=wheelbase, dt=dt,
+                                       add_noise=add_noise)
+    from slam_tpu_torch.models.rbpf import control_noise_factor
+
+    _check_cuda(dict(xv=xv, Pv=Pv, seed=seed, controls=controls),
+                dict(seed=torch.int32))
+    P = xv.shape[1]
+    T = controls.shape[0]
+    _require(xv.shape == (3, P) and Pv.shape == (6, P)
+             and seed.shape == (2,) and controls.shape == (T, 2),
+             "fs2_predict_multi: shapes do not match xv [3, P], Pv [6, P], "
+             "seed [2], controls [T, 2]")
+    lib = build.load_library()
+    err = lib.slam_fs2_predict_multi(
+        xv.data_ptr(), Pv.data_ptr(), seed.data_ptr(), controls.data_ptr(),
+        *control_noise_factor(Q), *pk.sym2_host(Q), float(wheelbase),
+        float(dt), int(add_noise), T, P,
+        torch.cuda.current_stream(xv.device).cuda_stream)
+    build.check(err, "slam_fs2_predict_multi")
+    fs2_predict_multi.launches += 1
+    return xv, Pv
+
+
+fs2_predict_multi.launches = 0

@@ -163,3 +163,131 @@ def feature_init_planes(xvx, xvy, xvt, zr, zb, r00, r01, r11):
     p01 = t0 * g10 + t1 * g11
     p11 = t2 * g10 + t3 * g11
     return nx, ny, p00, p01, p11
+
+
+# ---------------------------------------------------------------------------
+# Packed symmetric 3x3 (the FastSLAM 2 pose covariance): 6 planes in the
+# order 00, 01, 02, 11, 12, 22.
+# ---------------------------------------------------------------------------
+
+def sym3_mul_vec(P6, v0, v1, v2):
+    """Packed symmetric 3x3 times a 3-vector of planes."""
+    a, b, c, d, e, f = P6
+    return (a * v0 + b * v1 + c * v2,
+            b * v0 + d * v1 + e * v2,
+            c * v0 + e * v1 + f * v2)
+
+
+def sym3_quadform_inv(P6, v0, v1, v2, jitter=1e-9):
+    """v' P^-1 v and log|P| through the explicit adjugate, with
+    ``jitter`` on the diagonal and the determinant clamped to 1e-30."""
+    a, b, c, d, e, f = P6
+    a = a + jitter
+    d = d + jitter
+    f = f + jitter
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    det = a * A + b * B + c * C
+    det = torch.clamp(det, min=1e-30)
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    quad = (v0 * (A * v0 + B * v1 + C * v2)
+            + v1 * (B * v0 + D * v1 + E * v2)
+            + v2 * (C * v0 + E * v1 + F * v2)) / det
+    return quad, torch.log(det)
+
+
+def log_gauss3_planes(P6, v0, v1, v2, jitter=1e-9):
+    """log N(v; 0, P) for packed symmetric 3x3 P."""
+    quad, logdet = sym3_quadform_inv(P6, v0, v1, v2, jitter)
+    return -0.5 * quad - 1.5 * _LOG_2PI - 0.5 * logdet
+
+
+def sym3_inv(P6, jitter=1e-9):
+    """Inverse of packed symmetric 3x3 planes via the adjugate."""
+    a, b, c, d, e, f = P6
+    a = a + jitter
+    d = d + jitter
+    f = f + jitter
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    det = a * A + b * B + c * C
+    det = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    inv = 1.0 / det
+    return (A * inv, B * inv, C * inv, D * inv, E * inv, F * inv)
+
+
+def sym3_add(P6, Q6):
+    return tuple(p + q for p, q in zip(P6, Q6))
+
+
+def sym3_chol(P6, jitter=1e-9):
+    """Lower Cholesky factor of packed symmetric 3x3 planes, each pivot
+    clamped to 1e-30: (l00, l10, l11, l20, l21, l22)."""
+    a, b, c, d, e, f = P6
+    l00 = torch.sqrt(torch.clamp(a + jitter, min=1e-30))
+    l10 = b / l00
+    l20 = c / l00
+    l11 = torch.sqrt(torch.clamp(d + jitter - l10 * l10, min=1e-30))
+    l21 = (e - l20 * l10) / l11
+    l22 = torch.sqrt(torch.clamp(f + jitter - l20 * l20 - l21 * l21,
+                                 min=1e-30))
+    return l00, l10, l11, l20, l21, l22
+
+
+def chol3_mul_vec(L, e0, e1, e2):
+    """L @ eps for the packed lower factor of ``sym3_chol``."""
+    l00, l10, l11, l20, l21, l22 = L
+    return (l00 * e0,
+            l10 * e0 + l11 * e1,
+            l20 * e0 + l21 * e1 + l22 * e2)
+
+
+def refine_pose_planes(J: JacobianPlanes, Pv6, v0, v1):
+    """One FastSLAM 2 proposal-refinement step in covariance form:
+
+        K  = Pv Hv' (Sf + Hv Pv Hv')^-1
+        xv <- xv + K v,   Pv <- Pv - K (Hv Pv)'
+
+    the Woodbury form of the reference's information-form update, which
+    inverts only the 2x2 (Sf + Hv Pv Hv') >= R > 0 and never the
+    near-singular Pv. Hv = [[hv00, hv01, 0], [hv10, hv11, -1]]. Returns
+    ((dx0, dx1, dx2), Pv_new 6-tuple)."""
+    # U = Pv Hv' (columns ua = Pv r0', ub = Pv r1').
+    ua0, ua1, ua2 = sym3_mul_vec(Pv6, J.hv00, J.hv01,
+                                 torch.zeros_like(J.hv00))
+    ub0, ub1, ub2 = sym3_mul_vec(Pv6, J.hv10, J.hv11,
+                                 -torch.ones_like(J.hv00))
+    # Hv Pv Hv' = Hv U (2x2 symmetric).
+    t00 = J.hv00 * ua0 + J.hv01 * ua1
+    t01 = J.hv00 * ub0 + J.hv01 * ub1
+    t11 = J.hv10 * ub0 + J.hv11 * ub1 - ub2
+    s00 = J.s00 + t00
+    s01 = J.s01 + t01
+    s11 = J.s11 + t11
+    det = torch.clamp(s00 * s11 - s01 * s01, min=1e-30)
+    i00, i01, i11 = s11 / det, -s01 / det, s00 / det
+    # K = U S^-1, rows k_i = (ua_i, ub_i) S^-1.
+    k00 = ua0 * i00 + ub0 * i01
+    k01 = ua0 * i01 + ub0 * i11
+    k10 = ua1 * i00 + ub1 * i01
+    k11 = ua1 * i01 + ub1 * i11
+    k20 = ua2 * i00 + ub2 * i01
+    k21 = ua2 * i01 + ub2 * i11
+    dx = (k00 * v0 + k01 * v1,
+          k10 * v0 + k11 * v1,
+          k20 * v0 + k21 * v1)
+    a, b, c, d, e, f = Pv6
+    Pv_new = (a - (k00 * ua0 + k01 * ub0),
+              b - (k00 * ua1 + k01 * ub1),
+              c - (k00 * ua2 + k01 * ub2),
+              d - (k10 * ua1 + k11 * ub1),
+              e - (k10 * ua2 + k11 * ub2),
+              f - (k20 * ua2 + k21 * ub2))
+    return dx, Pv_new

@@ -4,11 +4,12 @@ slam_tpu.runtime.loop, whose superstep is one ``lax.scan`` body).
 A superstep is ``steps_per_observe`` control ticks — truth step, noisy
 controls, particle predict, dead-reckoning odometry — then one
 observation and the estimator update. An estimator with
-``predict_multi`` (``FastSlam1Deferred``) at a particle count that is a
-multiple of 1024 predicts all the ticks of a superstep in one call
-after them, as the JAX runner's ``_superstep_multi`` does. Everything
-stays on the run's device; the per-superstep traces are written into
-preallocated device buffers and copied to the host once, at the end.
+``predict_multi`` (``FastSlam1Deferred``, and ``FastSlam2`` with the
+heading unknown) at a particle count that is a multiple of 1024
+predicts all the ticks of a superstep in one call after them, as the
+JAX runner's ``_superstep_multi`` does. Everything stays on the run's
+device; the per-superstep traces are written into preallocated device
+buffers and copied to the host once, at the end.
 The only host syncs inside the loop are the estimator's gates
 (``rbpf.host_bool``), counted in ``RunResult.host_syncs``.
 """

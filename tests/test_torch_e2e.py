@@ -1,5 +1,6 @@
-"""The port end to end on the CPU: FastSLAM 1 through Runner on
-data/ring40 against the JAX package on the same map, ticks and seeds;
+"""The port end to end on the CPU: FastSLAM 1 and FastSLAM 2 through
+Runner on data/ring40 against the JAX package on the same map, ticks and
+seeds; FastSLAM 2 with the heading unknown on its multi-tick predict;
 the CLI's report files; and a process that imports and runs the port
 without ever importing JAX.
 
@@ -29,10 +30,10 @@ def ring40():
     return cfg, read_map_file(os.path.join(DATA, "ring40.mat"))
 
 
-def _rms_ate(runtime, cfg, slam_map):
+def _rms_ate(runtime, cfg, slam_map, method="FASTSLAM1"):
     ates = []
     for seed in SEEDS:
-        runner = runtime.Runner(cfg, slam_map, "FASTSLAM1", n_particles=32)
+        runner = runtime.Runner(cfg, slam_map, method, n_particles=32)
         result = runner.run(seed=seed, n_ticks=400)
         ate = runtime.compute_metrics(result).ate_rmse
         assert np.isfinite(ate)
@@ -54,20 +55,71 @@ def test_fastslam1_ate_within_jax_bound(ring40):
     assert result.host_syncs == 2 * len(result.active)
 
 
+def test_fastslam2_ate_within_jax_bound(ring40):
+    import slam_tpu.runtime as jrt
+    import slam_tpu_torch.runtime as trt
+
+    cfg, slam_map = ring40
+    assert cfg.SWITCH_HEADING_KNOWN    # the per-tick predict and heading
+    jax_ate, _ = _rms_ate(jrt, cfg, slam_map, "FASTSLAM2")
+    port_ate, result = _rms_ate(trt, cfg, slam_map, "FASTSLAM2")
+    assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
+    assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
+    assert int(result.final_state.n) > 0
+    # K2 path: FastSLAM 2 adds no sync to FastSLAM 1's two.
+    assert result.host_syncs == 2 * len(result.active)
+
+
+def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(
+        monkeypatch):
+    """At P = 1024 with the heading unknown the runner predicts each
+    superstep in one predict_multi call (K6b's twin on the CPU) and
+    never per tick; the update takes K4 (one sync per superstep)."""
+    from slam_tpu_torch.config import SlamConfig as TSlamConfig
+    from slam_tpu_torch.maps import synthetic_map
+    from slam_tpu_torch.models import FastSlam2
+    from slam_tpu_torch.ops.kernels import predict as tp
+    from slam_tpu_torch.runtime import Runner, compute_metrics
+
+    calls = {"per_tick": 0, "multi": 0}
+    for name, key in (("predict", "per_tick"), ("_predict_multi", "multi")):
+        fn = getattr(FastSlam2, name)
+
+        def counted(self, *a, _fn=fn, _key=key):
+            calls[_key] += 1
+            return _fn(self, *a)
+        monkeypatch.setattr(FastSlam2, name, counted)
+    twin = tp.fs2_predict_multi_plain
+    twin_calls = []
+    monkeypatch.setattr(tp, "fs2_predict_multi_plain",
+                        lambda *a, **k: twin_calls.append(1) or twin(*a, **k))
+
+    cfg = TSlamConfig(SWITCH_HEADING_KNOWN=0)
+    slam_map = synthetic_map(35, 17, radius=100.0)
+    result = Runner(cfg, slam_map, "FASTSLAM2", n_particles=1024).run(
+        seed=3, n_ticks=6 * cfg.steps_per_observe)
+    assert calls == {"per_tick": 0, "multi": 6} and len(twin_calls) == 6
+    assert result.host_syncs == 6
+    assert np.isfinite(compute_metrics(result).ate_rmse)
+    assert np.isfinite(result.est_pose).all()
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
 
-def test_cli_writes_report(tmp_path):
+@pytest.mark.parametrize("method", ["FASTSLAM1", "FASTSLAM2"])
+def test_cli_writes_report(tmp_path, method):
     proc = subprocess.run(
         [sys.executable, "-m", "slam_tpu_torch", "-m",
-         os.path.join(DATA, "ring40.mat"), "-method", "FASTSLAM1",
+         os.path.join(DATA, "ring40.mat"), "-method", method,
          "-particles", "16", "-ticks", "160", "-seed", "3", "-device",
          "cpu", "-n", "run", "-out", str(tmp_path)],
         capture_output=True, text=True, env=_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr
+    assert f"slam_tpu_torch {method} on" in proc.stderr
     out = tmp_path / "run"
     for f in ("results.txt", "errors.txt", "times.txt", "positions.txt",
               "observedCounts.txt", "averageLengthLandmark.txt"):
@@ -83,10 +135,11 @@ def test_port_never_imports_jax(tmp_path):
         "import slam_tpu_torch\n"
         "assert 'jax' not in sys.modules, 'import slam_tpu_torch'\n"
         "from slam_tpu_torch.cli import main\n"
-        f"rc = main(['-m', {os.path.join(DATA, 'ring40.mat')!r}, "
-        "'-particles', '8', '-ticks', '80', '-device', 'cpu', "
-        f"'-out', {str(tmp_path)!r}])\n"
-        "assert rc == 0\n"
+        "for method in ('FASTSLAM1', 'FASTSLAM2'):\n"
+        f"    rc = main(['-m', {os.path.join(DATA, 'ring40.mat')!r}, "
+        "'-method', method, '-particles', '8', '-ticks', '80', "
+        f"'-device', 'cpu', '-out', {str(tmp_path)!r}])\n"
+        "    assert rc == 0, method\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib')], 'a CPU run'\n"
         "print('no jax')\n")
@@ -100,4 +153,4 @@ def test_unported_method_names_the_roadmap():
     from slam_tpu_torch.models import make_estimator
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_estimator("FASTSLAM2", SlamConfig(), 10)
+        make_estimator("EKF1", SlamConfig(), 10)

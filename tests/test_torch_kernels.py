@@ -199,8 +199,9 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     for g, w in zip(tk.bounds_gather_multi(arrays, S),
                     tgather.bounds_gather_multi_plain(arrays, S)):
         assert torch.equal(g, w)
-    assert tk.launch_counts() == {"K2": 0, "K4": 0, "K5": 0, "K6": 0,
-                                  "G1": 0, "G2": 0}
+    assert tk.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                  "K5": 0, "K6": 0, "K6b": 0, "G1": 0,
+                                  "G2": 0}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
@@ -225,7 +226,8 @@ def test_build_raises_with_compiler_output(tmp_path):
 def test_build_hash_covers_every_source():
     names = {p.name for p in build.CSRC_DIR.glob("*.cu*")}
     assert {"planes.cuh", "philox.cuh", "observe.cu", "fused_update.cu",
-            "gather.cu", "resample_update.cu", "predict.cu"} <= names
+            "gather.cu", "resample_update.cu", "predict.cu", "refine.cu",
+            "jacobians.cu"} <= names
     assert [p.name for p in build.sources()] == sorted(
         n for n in names if n.endswith(".cu"))
     assert len(build.source_hash()) == 16
