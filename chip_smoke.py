@@ -14,8 +14,11 @@ Phases, in order; any failure raises and exits non-zero:
    P=2^17; and slice (f)'s K=9, L=40, P=2^20), G1 (P=100) and G2
    (P=2^17; and P=2^20 at L=40), over the 10 + 5L rows of the resample
    gather; K5 at config #5's shapes (K=96, L=192, P=2^20)
-   with a fired resample; K6 (T=8, P=2^20) with the noise on and off;
-   K3 (K=15, P=2^20) with matched and unmatched slots; K6b (T=8,
+   with a fired resample, and on edge cases at P=2^16 (all columns from
+   one ancestor; the identity but for one tile; a tile whose ancestor
+   run is wider than the staging width; L=40; no matched observation;
+   one landmark observed twice); K6 (T=8, P=2^20) with the noise on and
+   off; K3 (K=15, P=2^20) with matched and unmatched slots; K6b (T=8,
    P=2^20) with the noise on and off; K1 (K=15, P=2^20). Gathers must
    be bit-equal; float outputs within rtol 1e-5, atol 1e-5 (the kernels
    sum over k in another order than the twins, and the device libm
@@ -23,8 +26,16 @@ Phases, in order; any failure raises and exits non-zero:
    package's golden tolerances of the refinement (xv rtol 1e-4, atol
    1e-5; Pv rtol 1e-3, atol 1e-6), as its chain over K observations
    compounds rounding; headings (and K1's bearings) are compared
-   wrapped, as one ulp at +-pi flips a wrapped value by 2 pi. Times
-   each kernel and its twin with CUDA events.
+   wrapped, as one ulp at +-pi flips a wrapped value by 2 pi. K5 must
+   also be bit-equal to G2's gather followed by K4 (the same operation
+   order), and its two load branches (staged through shared memory, and
+   direct) bit-equal to each other; for the landmark observed twice,
+   where the twin computes both updates from the old values, only these
+   two hold. Times each kernel and its twin with CUDA events (plain,
+   kernel, kernel, plain), the kernel's device time with torch.profiler,
+   and where one PyTorch call computes the same function (G1:
+   index_select, G2: repeat_interleave) that call too; and computes each
+   kernel's bound from the bytes and operations of these inputs.
 4. FastSLAM 1 end to end through Runner + compute_metrics; the launch
    counters are reset before each run and read after it:
    (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2 and
@@ -57,7 +68,9 @@ Phases, in order; any failure raises and exits non-zero:
    on the paths rounds by timing).
 
 The last line is the JSON result; the two lines before it are the
-kernel table (JSON) and the card's name and power limit.
+kernel table (JSON: per kernel its launches on the main paths and per
+superstep of each slice, error, times, bytes, operations, bound and
+share of the bound) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -135,6 +148,28 @@ TOL_REFINE_PV = dict(rtol=1e-3, atol=1e-6)
 TOL_PATHS = dict(rtol=1e-4, atol=1e-4)
 R = [[0.01, 0.0], [0.0, 0.0003]]
 Q = [[0.09, 0.0], [0.0, 0.0025]]
+# K5's tiles, as in csrc/resample_update.cu (kTile, kStageWidth): a tile
+# of output columns is staged through shared memory when its ancestor
+# run, widened to 16-byte edges, fits the staging width.
+K5_TILE, K5_STAGE_WIDTH = 512, 768
+K5_EDGE_P = 2 ** 16
+
+# The bound of a kernel: the larger of its bytes over the card's memory
+# rate and its operations over the float32 rate outside the tensor
+# cores (NVIDIA's data sheet for the H100 SXM, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per unit of work, counted from csrc/planes.cuh, predict.cu
+# and philox.cuh: each arithmetic operation, comparison, integer
+# operation and libm call as one (a libm call is several instructions,
+# so these bounds are low).
+OPS_JACOBIAN = 65    # jacobians_planes, per (k, p)
+OPS_MATCH = 150      # planes.cuh:fs1_match, per matched (k, p)
+OPS_INIT = 35        # feature_init_planes, per new (k, p)
+OPS_REFINE = 190     # K3 per matched (k, p): Jacobians, refine_pose_planes
+OPS_TICK_FS1 = 19    # K6's bicycle step, per (tick, p)
+OPS_NOISE = 120      # Philox4x32-10 (98) and Box-Muller (22), per (tick, p)
+OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
 
 KERNELS = {
     "K2": ("slam_tpu_torch/csrc/observe.cu",
@@ -191,12 +226,35 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def timed_pair(kernel, plain):
     """(kernel ms, plain ms), measured in turns plain, kernel, kernel,
-    plain; the smaller of each pair."""
-    p1 = cuda_ms(plain)
+    plain; the smaller of each pair. The twin, up to 1000 times slower,
+    is timed over 5 calls."""
+    p1 = cuda_ms(plain, iters=5)
     k1 = cuda_ms(kernel)
     k2 = cuda_ms(kernel)
-    p2 = cuda_ms(plain)
+    p2 = cuda_ms(plain, iters=5)
     return min(k1, k2), min(p1, p2)
+
+
+def measure(kernel, plain, library=None) -> dict:
+    """The kernel's and its twin's CUDA-event times (timed_pair), the
+    kernel's device time from torch.profiler, and, where one PyTorch
+    call computes the same function, that call's two times."""
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    ms, plain_ms = timed_pair(kernel, plain)
+    out = dict(ms=ms, plain_ms=plain_ms, device_ms=device_ms(kernel),
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        out.update(library_ms=cuda_ms(library),
+                   library_device_ms=device_ms(library))
+    return out
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time of the work on this card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs_err(got, want) -> float:
@@ -209,13 +267,10 @@ def check_kernels(dev) -> dict:
     import numpy as np
     import torch
 
-    from slam_tpu_torch.ops import resampling as rs
-    from slam_tpu_torch.ops.kernels import gather as kg
     from slam_tpu_torch.ops.kernels import kernels as kk
 
     rng = np.random.default_rng(0)
     g = torch.Generator(device=dev).manual_seed(0)
-    f32 = dict(dtype=torch.float32, device=dev)
     results = {}
 
     def t(a, dtype=torch.float32):
@@ -240,10 +295,12 @@ def check_kernels(dev) -> dict:
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **TOL)
-    ms, plain_ms = timed_pair(lambda: kk.observe(*args),
-                              lambda: kk.observe_plain(*args))
-    results["K2"] = dict(max_abs_err=max_abs_err(got, want), ms=ms,
-                         plain_ms=plain_ms, shape=f"K={K} P={P}")
+    results["K2"] = dict(
+        max_abs_err=max_abs_err(got, want), shape=f"K={K} P={P}",
+        bytes=4 * (3 * P + 5 * K * P + 2 * K + P + 5 * K * P) + K,
+        ops=K * P * OPS_MATCH,
+        **measure(lambda: kk.observe(*args),
+                  lambda: kk.observe_plain(*args)))
 
     # K4 and G2 at the shapes of the FS1 slice (b) and of the FS2 slice
     # (f); the first of each is the one timed in the kernel table.
@@ -253,34 +310,7 @@ def check_kernels(dev) -> dict:
     results["K4 fs2-1m"] = check_k4(dev, rng, g, FS2_P, fs2_L, fs2_K,
                                     n_map=35, live=20, n_match=5, n_new=3)
 
-    # G1 / G2: the resample gather's three row sets, 10 + 5L rows.
-    for name, P, L in (("G1", P_SMALL, CAPACITY), ("G2", P_LARGE, CAPACITY),
-                       ("G2 fs2-1m", FS2_P, fs2_L)):
-        arrays = [torch.randn((c, P), generator=g, **f32) * 37
-                  for c in (10, 2 * L, 3 * L)]
-        logw = torch.randn(P, generator=g, **f32) * 2.0
-        U = rs.uniform_from_generator(P, g, dev)
-        if name == "G1":
-            sel = rs.stratified_indices(logw, U)
-            kernel, plain = kg.sorted_gather_multi, \
-                kg.sorted_gather_multi_plain
-        else:
-            sel = rs.offspring_bounds(
-                rs.cumulative_weights(rs.normalize_log_weights(logw)), P, U)
-            kernel, plain = kg.bounds_gather_multi, \
-                kg.bounds_gather_multi_plain
-        got, want = kernel(arrays, sel), plain(arrays, sel)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}: gather is not bit-equal")
-        ms, plain_ms = timed_pair(lambda: kernel(arrays, sel),
-                                  lambda: plain(arrays, sel))
-        results[name] = dict(max_abs_err=max_abs_err(got, want), ms=ms,
-                             plain_ms=plain_ms,
-                             shape=f"rows={sum(a.shape[0] for a in arrays)}"
-                                   f" P={P}")
-        del got, want, arrays
+    results.update(check_gathers(dev, g, fs2_L))
     results["K5"] = check_k5(dev, rng, g)
     results["K6"] = check_k6(dev, g)
     results["K3"] = check_k3(dev, rng, g)
@@ -289,86 +319,75 @@ def check_kernels(dev) -> dict:
     return results
 
 
-def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
-    """K4 at K observations, L slots, P particles: ``live`` landmarks
-    mapped, ``n_match`` of them observed, ``n_new`` new ones and one
-    masked observation of a live landmark."""
-    import numpy as np
+def check_gathers(dev, g, fs2_L) -> dict:
+    """G1 (P = 100) and G2 (P = 2^17, and P = 2^20 at L = 40) over the
+    resample gather's three row sets, 10 + 5L rows: bit-equal to their
+    twins and to the library call that computes the same gather
+    (index_select by the ancestors for G1, repeat_interleave by the
+    offspring counts for G2, on the rows stacked beforehand)."""
     import torch
 
-    from slam_tpu_torch.models.particles import init_particles
-    from slam_tpu_torch.models.rbpf import associate_known, new_slots
-    from slam_tpu_torch.ops.kernels import kernels as kk
-
-    check(n_match + n_new + 1 == K and live + n_new <= min(n_map, L),
-          "K4 input: inconsistent sizes")
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    def t(a, dtype=torch.float32):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    state = init_particles(P, L, n_map, device=dev)
-    truth = rng.uniform(-30.0, 30.0, size=(n_map, 2))
-    table = np.full(n_map, -1, np.int32)
-    table[:live] = rng.permutation(live)
-    lm = np.zeros((2, L, P), np.float32)
-    lm[:, table[:live]] = truth[:live].T[:, :, None]
-    state.lm.copy_(t(lm) + 0.2 * torch.randn((2, L, P), generator=g,
-                                             **f32))
-    del lm
-    state.lm_P[0, :live] = 0.05
-    state.lm_P[1, :live] = 0.01
-    state.lm_P[2, :live] = 0.04
-    state.xv.copy_(0.1 * torch.randn((3, P), generator=g, **f32))
-    state = state._replace(n=t(live, torch.int32),
-                           da_table=t(table, torch.int32))
-    ids_np = np.concatenate([rng.choice(live, n_match, replace=False),
-                             np.arange(live, live + n_new), [7]]
-                            ).astype(np.int32)
-    d = truth[ids_np]
-    z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
-                           np.arctan2(d[:, 1], d[:, 0])]))
-    ids = t(ids_np, torch.int32)
-    zmask = t(np.arange(K) < K - 1, torch.bool)
-    assoc, is_new = associate_known(state, ids, zmask)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).to(torch.int32)
-    slot_new, ok = new_slots(state, is_new)
-    check(int(matched.sum()) == n_match and int(ok.sum()) == n_new,
-          f"K4 input: expected {n_match} matched and {n_new} new "
-          "observations")
-
-    def fresh():
-        return (state.xv, state.logw.clone(), state.lm.clone(),
-                state.lm_P.clone(), z, slot, matched, slot_new, ok, R)
-    a_k, a_p = fresh(), fresh()
-    kk.fused_update(*a_k)
-    kk.fused_update_plain(*a_p)
-    torch.cuda.synchronize()
-    for a, b in zip(a_k[1:4], a_p[1:4]):
-        torch.testing.assert_close(a, b, **TOL)
-    err = max_abs_err(a_k[1:4], a_p[1:4])
-    del a_k, a_p
-    b_k, b_p = fresh(), fresh()
-    ms, plain_ms = timed_pair(lambda: kk.fused_update(*b_k),
-                              lambda: kk.fused_update_plain(*b_p))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"K={K} L={L} P={P}")
-
-
-def check_k5(dev, rng, g) -> dict:
-    """K5 at config #5's shapes: 150 live landmarks of 192 slots, 70
-    matched observations, 20 new ones, 6 masked (K = 96), and the
-    offspring bounds of a fired resample."""
-    import numpy as np
-    import torch
-
-    from slam_tpu_torch.models.particles import init_particles
-    from slam_tpu_torch.models.rbpf import associate_known, new_slots
     from slam_tpu_torch.ops import resampling as rs
-    from slam_tpu_torch.ops.kernels import kernels as kk
+    from slam_tpu_torch.ops.kernels import gather as kg
 
-    P, L, K, n_map, live = C5_P, C5_CAPACITY, C5_MAX_OBS, 400, 150
+    f32 = dict(dtype=torch.float32, device=dev)
+    results = {}
+    for name, P, L in (("G1", P_SMALL, CAPACITY), ("G2", P_LARGE, CAPACITY),
+                       ("G2 fs2-1m", FS2_P, fs2_L)):
+        arrays = [torch.randn((c, P), generator=g, **f32) * 37
+                  for c in (10, 2 * L, 3 * L)]
+        stacked = torch.cat(arrays)
+        rows = stacked.shape[0]
+        logw = torch.randn(P, generator=g, **f32) * 2.0
+        U = rs.uniform_from_generator(P, g, dev)
+        if name == "G1":
+            sel = rs.stratified_indices(logw, U)
+            kernel, plain = kg.sorted_gather_multi, \
+                kg.sorted_gather_multi_plain
+            distinct = int(torch.unique(sel).numel())
+            library = lambda: torch.index_select(stacked, 1, sel)  # noqa
+        else:
+            sel = rs.offspring_bounds(
+                rs.cumulative_weights(rs.normalize_log_weights(logw)), P, U)
+            kernel, plain = kg.bounds_gather_multi, \
+                kg.bounds_gather_multi_plain
+            counts = torch.diff(sel, prepend=sel.new_zeros(1)).long()
+            distinct = int((counts > 0).sum())
+            library = lambda: torch.repeat_interleave(  # noqa
+                stacked, counts, dim=1, output_size=P)
+        got, want = kernel(arrays, sel), plain(arrays, sel)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: gather is not bit-equal")
+        check(torch.equal(library(), torch.cat(got)),
+              f"{name}: the library call gathers other values")
+        results[name] = dict(
+            max_abs_err=max_abs_err(got, want),
+            shape=f"rows={rows} P={P} distinct={distinct}",
+            bytes=4 * (rows * distinct + P + rows * P), ops=0,
+            **measure(lambda: kernel(arrays, sel), lambda: plain(arrays, sel),
+                      library))
+        del got, want, arrays, stacked
+    return results
+
+
+def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
+                  twice=False):
+    """A particle state and an observation batch for K4 and K5 at K
+    observations, L slots, P particles: ``live`` landmarks mapped,
+    ``n_match`` of them observed, ``n_new`` new ones, the rest masked
+    observations of live landmarks. ``twice``: the first landmark is
+    observed twice, so two k match one slot. Returns (state, (z, slot,
+    matched, slot_new, ok))."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.models.particles import init_particles
+    from slam_tpu_torch.models.rbpf import associate_known, new_slots
+
+    check(n_match + n_new <= K and live + n_new <= min(n_map, L),
+          "update input: inconsistent sizes")
     f32 = dict(dtype=torch.float32, device=dev)
 
     def t(a, dtype=torch.float32):
@@ -389,46 +408,222 @@ def check_k5(dev, rng, g) -> dict:
     state.xv.copy_(0.1 * torch.randn((3, P), generator=g, **f32))
     state = state._replace(n=t(live, torch.int32),
                            da_table=t(table, torch.int32))
-    ids_np = np.concatenate([rng.choice(live, 70, replace=False),
-                             np.arange(live, live + 20),
-                             rng.choice(live, 6, replace=False)]
+    seen = rng.choice(live, n_match, replace=False)
+    if twice:
+        seen[1] = seen[0]
+    ids_np = np.concatenate([seen, np.arange(live, live + n_new),
+                             rng.choice(live, K - n_match - n_new)]
                             ).astype(np.int32)
     d = truth[ids_np]
     z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
                            np.arctan2(d[:, 1], d[:, 0])]))
     ids = t(ids_np, torch.int32)
-    zmask = t(np.arange(K) < 90, torch.bool)
+    zmask = t(np.arange(K) < n_match + n_new, torch.bool)
     assoc, is_new = associate_known(state, ids, zmask)
     matched = assoc >= 0
     slot = torch.where(matched, assoc, 0).to(torch.int32)
     slot_new, ok = new_slots(state, is_new)
-    check(int(matched.sum()) == 70 and int(ok.sum()) == 20,
-          "K5 input: expected 70 matched and 20 new observations")
-    logw = torch.randn(P, generator=g, **f32)
-    S = rs.offspring_bounds(
-        rs.cumulative_weights(rs.normalize_log_weights(logw)), P,
-        rs.uniform_from_generator(P, g, dev))
+    check(int(matched.sum()) == n_match and int(ok.sum()) == n_new,
+          f"update input: expected {n_match} matched and {n_new} new "
+          "observations")
+    return state, (z, slot, matched, slot_new, ok)
+
+
+def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
+    """K4 at K observations, L slots, P particles: ``live`` landmarks
+    mapped, ``n_match`` of them observed, ``n_new`` new ones and the
+    rest masked."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import kernels as kk
+
+    state, batch = update_inputs(dev, rng, g, P, L, K, n_map=n_map,
+                                 live=live, n_match=n_match, n_new=n_new)
+
+    def fresh():
+        return (state.xv, state.logw.clone(), state.lm.clone(),
+                state.lm_P.clone(), *batch, R)
+    a_k, a_p = fresh(), fresh()
+    kk.fused_update(*a_k)
+    kk.fused_update_plain(*a_p)
+    torch.cuda.synchronize()
+    for a, b in zip(a_k[1:4], a_p[1:4]):
+        torch.testing.assert_close(a, b, **TOL)
+    err = max_abs_err(a_k[1:4], a_p[1:4])
+    del a_k, a_p
+    b_k, b_p = fresh(), fresh()
+    # Reads the pose, the weight and the matched slots; writes the
+    # weight and the touched slots.
+    nbytes = 4 * P * (3 + 2 + 5 * n_match + 5 * (n_match + n_new)) + 18 * K
+    return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
+                ops=P * (n_match * OPS_MATCH + n_new * OPS_INIT),
+                **measure(lambda: kk.fused_update(*b_k),
+                          lambda: kk.fused_update_plain(*b_p)))
+
+
+def k5_bounds(dev, rng, g, P, kind):
+    """Offspring bounds S [P] for a K5 check: a fired stratified
+    resample of random weights, or a chosen ancestor vector."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops import resampling as rs
+
+    if kind == "fired":
+        logw = torch.randn(P, generator=g, device=dev)
+        return rs.offspring_bounds(
+            rs.cumulative_weights(rs.normalize_log_weights(logw)), P,
+            rs.uniform_from_generator(P, g, dev))
+    anc = np.arange(P)
+    tile = K5_TILE
+    if kind == "one ancestor":
+        anc[:] = P // 3 + 1
+    elif kind == "identity but one tile":
+        j0 = 5 * tile
+        anc[j0:j0 + tile] = np.sort(rng.integers(j0, j0 + tile, tile))
+    elif kind == "wide run":     # tile 0 from every 8th of 8 tiles' columns
+        anc[:tile] = 8 * np.arange(tile)
+        anc[tile:] = np.sort(rng.integers(8 * tile, P, P - tile))
+    else:
+        raise ValueError(kind)
+    S = np.searchsorted(anc, np.arange(P), side="right")
+    return torch.tensor(S, dtype=torch.int32, device=dev)
+
+
+def k5_layout(S) -> dict:
+    """What K5's work depends on in S: the distinct ancestors, the share
+    of 32-byte sectors of an input row (8 columns) that hold at least
+    one of them (what a read must fetch at the memory's granularity),
+    and the share of tiles whose ancestor run fits the staging width."""
+    import torch
+
+    from slam_tpu_torch.ops import resampling as rs
+
+    P = S.shape[0]
+    anc = rs.ancestors_from_bounds(S, P)
+    first, last = anc[::K5_TILE], anc[K5_TILE - 1::K5_TILE]
+    last = torch.cat([last, anc[-1:]])[:first.shape[0]]
+    width = ((last | 3) + 1) - (first & ~3)
+    live = torch.diff(S, prepend=S.new_zeros(1)) > 0
+    sectors = torch.nn.functional.pad(live, (0, -P % 8)).view(-1, 8)
+    return dict(distinct=int(live.sum()),
+                live_sectors=float(sectors.any(dim=1).float().mean()),
+                staged_tiles=float((width <= K5_STAGE_WIDTH).float().mean()))
+
+
+def check_k5_case(name, state, batch, S, logw, twin=True) -> float:
+    """K5 on one input: bit-equal to G2's gather followed by K4, its
+    staged and direct branches bit-equal, and (``twin``) within TOL of
+    its twin. Returns the largest error against the twin."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import gather as kg
+    from slam_tpu_torch.ops.kernels import kernels as kk
+
+    _, L, P = state.lm.shape
+
+    def args(lw):
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
+
+    def composed(lw):
+        lm_g, lmP_g = kg.bounds_gather_multi(
+            [state.lm.reshape(2 * L, P), state.lm_P.reshape(3 * L, P)], S)
+        lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
+        kk.fused_update(state.xv, lw, lm_g, lmP_g, *batch, R)
+        return lm_g, lmP_g
+
+    lw = [logw.clone() for _ in range(3)]
+    got = (lw[0], *kk.resample_update(*args(lw[0])))
+    for other, what in ((lambda a: kk.resample_update_launch(
+            *args(a), staged=False), "its direct branch"),
+                        (composed, "G2 + K4")):
+        ref = (lw[1], *other(lw[1]))
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            check(torch.equal(a, b), f"K5 {name}: not bit-equal to {what}")
+        lw[1] = logw.clone()
+        del ref
+    err = 0.0
+    if twin:
+        want = (lw[2], *kk.resample_update_plain(*args(lw[2])))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)
+        err = max_abs_err(got, want)
+    return err
+
+
+def check_k5(dev, rng, g) -> dict:
+    """K5 at config #5's shapes: 150 live landmarks of 192 slots, 70
+    matched observations, 20 new ones, 6 masked (K = 96), and the
+    offspring bounds of a fired resample; then the edge cases at
+    P = 2^16."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import kernels as kk
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    P, L, K = C5_P, C5_CAPACITY, C5_MAX_OBS
+    c5 = dict(n_map=400, live=150, n_match=70, n_new=20)
+    state, batch = update_inputs(dev, rng, g, P, L, K, **c5)
+    logw = torch.randn(P, generator=g, device=dev)
+    S = k5_bounds(dev, rng, g, P, "fired")
     check(not torch.equal(S, torch.arange(1, P + 1, device=dev,
                                           dtype=torch.int32)),
           "K5 input: the bounds are the identity")
+    err = check_k5_case("config #5", state, batch, S, logw)
+    layout = k5_layout(S)
 
     def args(lw):
-        return (state.xv, lw, state.lm, state.lm_P, S, z, slot, matched,
-                slot_new, ok, R)
-    lw_k, lw_p = logw.clone(), logw.clone()
-    got = (lw_k, *kk.resample_update(*args(lw_k)))
-    want = (lw_p, *kk.resample_update_plain(*args(lw_p)))
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, **TOL)
-    err = max_abs_err(got, want)
-    del got, want
-    lw_k, lw_p = logw.clone(), logw.clone()
-    ms, plain_ms = timed_pair(lambda: kk.resample_update(*args(lw_k)),
-                              lambda: kk.resample_update_plain(
-                                  *args(lw_p)))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"K={K} L={L} P={P}")
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
+    lw_k, lw_p, lw_d = logw.clone(), logw.clone(), logw.clone()
+    times = measure(lambda: kk.resample_update(*args(lw_k)),
+                    lambda: kk.resample_update_plain(*args(lw_p)))
+
+    def direct():
+        return kk.resample_update_launch(*args(lw_d), staged=False)
+    times.update(direct_ms=cuda_ms(direct), direct_device_ms=device_ms(direct))
+    # Reads the pose, the weight, S and every row of the distinct
+    # ancestors but those of the new slots; writes the weight and all
+    # 5 L rows.
+    nbytes = (4 * P * (3 + 1 + 1 + 5 * L + 1)
+              + 4 * 5 * (L - c5["n_new"]) * layout["distinct"] + 18 * K)
+    print(f"kernel K5 (K={K} L={L} P={P}): distinct ancestors "
+          f"{layout['distinct']}, sectors holding one "
+          f"{layout['live_sectors']:.4f}, staged tiles "
+          f"{layout['staged_tiles']:.4f}; direct branch "
+          f"{times['direct_ms']:.4f} ms", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # (name, L, K, inputs, bounds, one landmark observed twice)
+    cases = (("one ancestor", L, K, c5, "one ancestor", False),
+             ("identity but one tile", L, K, c5, "identity but one tile",
+              False),
+             ("wide run", L, K, c5, "wide run", False),
+             ("L=40", 40, 9, dict(n_map=35, live=20, n_match=5, n_new=3),
+              "fired", False),
+             ("no matched observation", L, K, dict(c5, n_match=0), "fired",
+              False),
+             ("one landmark observed twice", L, K, c5, "fired", True))
+    Pe = K5_EDGE_P
+    for name, Le, Ke, kw, kind, twice in cases:
+        st, bt = update_inputs(dev, rng, g, Pe, Le, Ke, **kw, twice=twice)
+        Se = k5_bounds(dev, rng, g, Pe, kind)
+        e = check_k5_case(name, st, bt, Se,
+                          torch.randn(Pe, generator=g, device=dev),
+                          twin=not twice)
+        err = max(err, e)
+        lay = k5_layout(Se)
+        if kind == "wide run":
+            check(lay["staged_tiles"] < 1.0, "K5 wide run: every tile staged")
+        print(f"kernel K5 edge case {name} (K={Ke} L={Le} P={Pe}): "
+              f"bit-equal to G2 + K4 and across branches"
+              f"{'' if twice else ', within TOL of the twin'}; "
+              f"staged tiles {lay['staged_tiles']:.4f}", flush=True)
+    return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
+                ops=P * (c5["n_match"] * OPS_MATCH + c5["n_new"] * OPS_INIT),
+                **layout, **times)
 
 
 def check_k6(dev, g) -> dict:
@@ -458,11 +653,12 @@ def check_k6(dev, g) -> dict:
         err = max(err, max_abs_err([got[:2], dth],
                                    [want[:2], torch.zeros_like(dth)]))
     a, b = xv.clone(), xv.clone()
-    ms, plain_ms = timed_pair(
-        lambda: kp.fs1_predict_multi(a, seed, ctl, Q, **kw),
-        lambda: kp.fs1_predict_multi_plain(b, seed, ctl, Q, **kw))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"T={T} P={P}")
+    return dict(max_abs_err=err, shape=f"T={T} P={P}",
+                bytes=4 * 6 * P + 8 * T + 8,
+                ops=P * T * (OPS_TICK_FS1 + OPS_NOISE),
+                **measure(lambda: kp.fs1_predict_multi(a, seed, ctl, Q, **kw),
+                          lambda: kp.fs1_predict_multi_plain(b, seed, ctl, Q,
+                                                             **kw)))
 
 
 def gathered_planes(dev, rng, g, P, K):
@@ -527,10 +723,13 @@ def check_k3(dev, rng, g) -> dict:
     err = compare_poses(got[0], want[0], TOL_REFINE_XV)
     torch.testing.assert_close(got[1], want[1], **TOL_REFINE_PV)
     err = max(err, max_abs_err([got[1]], [want[1]]))
-    ms, plain_ms = timed_pair(lambda: kk.fs2_refine(*args),
-                              lambda: kk.fs2_refine_plain(*args))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"K={K} P={P}")
+    n_match = int(matched.sum())
+    # Reads the pose, Pv and the matched k's planes; writes pose and Pv.
+    return dict(max_abs_err=err, shape=f"K={K} P={P}",
+                bytes=4 * P * (9 + 5 * n_match + 9) + 9 * K,
+                ops=P * n_match * OPS_REFINE,
+                **measure(lambda: kk.fs2_refine(*args),
+                          lambda: kk.fs2_refine_plain(*args)))
 
 
 def check_k6b(dev, g) -> dict:
@@ -562,11 +761,11 @@ def check_k6b(dev, g) -> dict:
         torch.testing.assert_close(got[1], want[1], **TOL)
         err = max(err, max_abs_err([got[1]], [want[1]]))
     a, b = (xv.clone(), Pv.clone()), (xv.clone(), Pv.clone())
-    ms, plain_ms = timed_pair(
-        lambda: kp.fs2_predict_multi(*a, seed, ctl, Q, **kw),
-        lambda: kp.fs2_predict_multi_plain(*b, seed, ctl, Q, **kw))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"T={T} P={P} noise off")
+    return dict(max_abs_err=err, shape=f"T={T} P={P} noise off",
+                bytes=4 * 18 * P + 8 * T + 8, ops=P * T * OPS_TICK_FS2,
+                **measure(lambda: kp.fs2_predict_multi(*a, seed, ctl, Q, **kw),
+                          lambda: kp.fs2_predict_multi_plain(*b, seed, ctl, Q,
+                                                             **kw)))
 
 
 def check_k1(dev, rng, g) -> dict:
@@ -593,9 +792,9 @@ def check_k1(dev, rng, g) -> dict:
         torch.testing.assert_close(a, b, **TOL)
         err = max(err, max_abs_err([a], [b]))
     del got, want
-    ms, plain_ms = timed_pair(lambda: kk.jacobians(xv, *planes, R), plain)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                shape=f"K={K} P={P}")
+    return dict(max_abs_err=err, shape=f"K={K} P={P}",
+                bytes=4 * P * (3 + 5 * K + 13 * K), ops=K * P * OPS_JACOBIAN,
+                **measure(lambda: kk.jacobians(xv, *planes, R), plain))
 
 
 def dense200():
@@ -668,6 +867,7 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
     ates, rates, syncs = [], [], []
     total = dict.fromkeys(kernels.WRAPPERS, 0)
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     for seed in SEEDS:
         kernels.reset_launch_counts()
         result, fs = run_once(dev, kind, cfg, slam_map, P, seed, ticks)
@@ -701,12 +901,16 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
         # run's.
         del result, fs
     rms = float(np.sqrt(np.mean(np.square(ates))))
-    bound = ATE_MARGIN * anchor
-    check(rms < bound, f"{name}: RMS ATE {rms} >= {bound}")
+    ate_bound = ATE_MARGIN * anchor
+    check(rms < ate_bound, f"{name}: RMS ATE {rms} >= {ate_bound}")
     summary = dict(P=P, ate_rmse_3seed=rms, ates=ates, steps_per_s=rates,
                    host_syncs_per_superstep=syncs, launches=total,
-                   ate_bound=bound,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                   launches_per_superstep={
+                       k: n / (len(SEEDS) * T) for k, n in total.items()
+                       if n},
+                   ate_bound=ate_bound,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   seconds=time.perf_counter() - t0)
     print(f"slice {name}: {json.dumps(summary)}", flush=True)
     return summary
 
@@ -777,11 +981,20 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
           flush=True)
 
+    t0 = time.perf_counter()
     kernel_stats = check_kernels(dev)
+    print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, st in kernel_stats.items():
-        print(f"kernel {name} ({st['shape']}): {st['ms']:.4f} ms, plain "
-              f"{st['plain_ms']:.4f} ms, max_abs_err {st['max_abs_err']:.3g}"
-              f" [{card}]", flush=True)
+        b_ms, by = bound(st["bytes"], st["ops"])
+        st.update(bound_ms=b_ms, bound_by=by, share=b_ms / st["ms"])
+        lib = ("" if st["library_ms"] is None else
+               f", library {st['library_ms']:.4f} ms (device "
+               f"{st['library_device_ms']})")
+        print(f"kernel {name} ({st['shape']}): {st['ms']:.4f} ms (device "
+              f"{st['device_ms']}), plain {st['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {by} ({st['bytes']:.4g} B, "
+              f"{st['ops']:.4g} ops), share {st['share']:.3f}{lib}, "
+              f"max_abs_err {st['max_abs_err']:.3g} [{card}]", flush=True)
     torch.cuda.empty_cache()
 
     small = run_slice(dev, "eager-small", dense200(), "eager", P_SMALL,
@@ -824,18 +1037,31 @@ def main() -> int:
     # from tests); every slice checks that it stayed at 0. The error is
     # the largest over a kernel's checks (K4 and G2 at two shapes each);
     # the times are those of its first check.
-    slices = (small, large, c5, deferred, fs2_small, fs2_1m)
-    launches = {k: sum(s["launches"][k] for s in slices)
+    slices = dict(zip(("eager-small", "eager-large", "config5",
+                       "deferred-large", "fs2-small", "fs2-1m"),
+                      (small, large, c5, deferred, fs2_small, fs2_1m)))
+    launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()
                    if n.split()[0] == k) for k in KERNELS}
-    table = [dict(name=name, route="cuda", source=KERNELS[name][0],
-                  replaces=KERNELS[name][1], launches=launches[name],
-                  max_abs_err=errs[name],
-                  ms=kernel_stats[name]["ms"],
-                  plain_ms=kernel_stats[name]["plain_ms"])
-             for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1",
-                          "G2")]
+    fields = ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+              "share", "bytes", "ops", "library_ms", "library_device_ms",
+              "shape")
+    table = []
+    for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2"):
+        st = kernel_stats[name]
+        row = dict(name=name, route="cuda", source=KERNELS[name][0],
+                   replaces=KERNELS[name][1], launches=launches[name],
+                   launches_per_superstep={
+                       sl: s["launches_per_superstep"][name]
+                       for sl, s in slices.items()
+                       if name in s["launches_per_superstep"]},
+                   max_abs_err=errs[name], **{f: st[f] for f in fields})
+        if name == "K5":
+            row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
+                                           "distinct", "live_sectors",
+                                           "staged_tiles")})
+        table.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}))
     print(card)

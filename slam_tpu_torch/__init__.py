@@ -3,8 +3,8 @@
 The JAX package ``slam_tpu`` is the reference; this package mirrors its
 module names so each port can be found beside its counterpart:
 
-- ``slam_tpu_torch.config`` / ``maps`` — re-exports of the JAX package's
-  pure-Python config and map reader (they import no JAX).
+- ``slam_tpu_torch.config`` / ``maps`` — the port's own copies of the
+  JAX package's config and map reader, equal to them field for field.
 - ``slam_tpu_torch.geometry`` and ``ops.planes`` — the plane algebra.
 - ``slam_tpu_torch.ops.resampling`` — log-space weights, Neff, the
   closed-form stratified offspring bounds.
@@ -16,7 +16,8 @@ module names so each port can be found beside its counterpart:
 - ``slam_tpu_torch.runtime`` — the superstep run loop and the
   DataGatherer-format metrics.
 
-Only ``torch`` and ``numpy`` are imported; never ``jax``.
+Only ``torch`` and ``numpy`` are imported; never ``jax``, and nothing of
+the ``slam_tpu`` package.
 """
 
 __version__ = "0.1.0"

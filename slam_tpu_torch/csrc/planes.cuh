@@ -191,12 +191,28 @@ __device__ __forceinline__ void refine_pose_planes(const Jacobians& J,
   Pv.f = Pv.f - (k20 * ua2 + k21 * ub2);
 }
 
+// One matched observation (z0, z1) of feature f, seen from the pose
+// (x, y, t): its log-likelihood is added to d, and f's 2x2 EKF update
+// is returned. K4 (fs1_update_column) and K5 (resample_update.cu) both
+// run it, so their updates and sums are bit-equal.
+__device__ __forceinline__ Feature fs1_match(float x, float y, float t,
+                                             const Feature& f, float z0,
+                                             float z1, float r00, float r01,
+                                             float r11, float& d) {
+  const Jacobians J = jacobians_planes(x, y, t, f.x, f.y, f.p00, f.p01,
+                                       f.p11, r00, r01, r11);
+  const float v0 = z0 - J.zr;
+  const float v1 = wrap_angle(z1 - J.zb);
+  d += log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11);
+  return feature_update_planes(f.x, f.y, f.p00, f.p01, f.p11, v0, v1, J);
+}
+
 // The FastSLAM 1 update of one particle column p, in place on the
-// landmark planes lm [2, L, P] and lmP [3, L, P] (K4's body, which K5
-// runs on the column it has just gathered): for each matched
-// observation k, the likelihood and the 2x2 EKF update of slot[k]; for
-// each ok_new k, the new feature at slot_new[k]. Slots outside [0, L)
-// are dropped. Returns the log-likelihood summed over the matched k.
+// landmark planes lm [2, L, P] and lmP [3, L, P] (K4's body): for each
+// matched observation k, in k order, the likelihood and the 2x2 EKF
+// update of slot[k]; for each ok_new k, the new feature at slot_new[k].
+// Slots outside [0, L) are dropped. Returns the log-likelihood summed
+// over the matched k.
 __device__ __forceinline__ float fs1_update_column(
     float x, float y, float t, float* lm, float* lmP, int p, int P,
     const float* z, const int* slot, const unsigned char* matched,
@@ -210,16 +226,10 @@ __device__ __forceinline__ float fs1_update_column(
     const int s = slot[k];
     if (matched[k] && s >= 0 && s < L) {
       const long i = (long)s * P + p;
-      const float lx = lm[i], ly = lm[plane + i];
-      const float a00 = lmP[i], a01 = lmP[plane + i],
-                  a11 = lmP[2 * plane + i];
-      const Jacobians J =
-          jacobians_planes(x, y, t, lx, ly, a00, a01, a11, r00, r01, r11);
-      const float v0 = z0 - J.zr;
-      const float v1 = wrap_angle(z1 - J.zb);
-      d += log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11);
-      const Feature f =
-          feature_update_planes(lx, ly, a00, a01, a11, v0, v1, J);
+      const Feature f = fs1_match(
+          x, y, t, Feature{lm[i], lm[plane + i], lmP[i], lmP[plane + i],
+                           lmP[2 * plane + i]},
+          z0, z1, r00, r01, r11, d);
       lm[i] = f.x;
       lm[plane + i] = f.y;
       lmP[i] = f.p00;

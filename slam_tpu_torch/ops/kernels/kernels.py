@@ -299,16 +299,28 @@ def resample_update(xv, logw, lm, lm_P, S, z, slot, matched, slot_new,
                      for t in (slot, matched, slot_new, ok_new)),
              "resample_update: shapes do not match xv [3, P], logw [P], "
              "S [P], lm [2, L, P], lm_P [3, L, P], z [K, 2], slots [K]")
+    lm_o, lmP_o = resample_update_launch(xv, logw, lm, lm_P, S, z, slot,
+                                         matched, slot_new, ok_new, R)
+    resample_update.launches += 1
+    return lm_o, lmP_o
+
+
+def resample_update_launch(xv, logw, lm, lm_P, S, z, slot, matched,
+                           slot_new, ok_new, R, staged: bool = True):
+    """One launch of csrc/resample_update.cu on tensors that
+    ``resample_update`` has checked; fresh (lm, lm_P). ``staged``: bring
+    the ancestors' rows through shared memory wherever a tile's ancestor
+    run fits (the path's setting); False reads every ancestor column
+    from device memory, to measure that branch on its own."""
+    _, L, P = lm.shape
     lm_o, lmP_o = torch.empty_like(lm), torch.empty_like(lm_P)
-    lib = build.load_library()
-    err = lib.slam_fs1_resample_update(
+    err = build.load_library().slam_fs1_resample_update(
         xv.data_ptr(), logw.data_ptr(), lm.data_ptr(), lm_P.data_ptr(),
         lm_o.data_ptr(), lmP_o.data_ptr(), S.data_ptr(), z.data_ptr(),
         slot.data_ptr(), matched.data_ptr(), slot_new.data_ptr(),
-        ok_new.data_ptr(), *pk.sym2_host(R), K, L, P,
+        ok_new.data_ptr(), *pk.sym2_host(R), z.shape[0], L, P, int(staged),
         torch.cuda.current_stream(xv.device).cuda_stream)
     build.check(err, "slam_fs1_resample_update")
-    resample_update.launches += 1
     return lm_o, lmP_o
 
 

@@ -16,6 +16,8 @@ against the JAX package's, and against the port's own eager path.
   numpy round trip, and on a card K5 against its twin.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -304,7 +306,7 @@ def test_runner_refuses_an_estimator_on_another_device():
 def test_config5_setup_matches_jax(kw):
     jcfg, jmap = jconfig5.config5_setup(**kw)
     tcfg, tmap = tconfig5.config5_setup(**kw)
-    assert tcfg == jcfg
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     np.testing.assert_array_equal(tmap.landmarks, jmap.landmarks)
     np.testing.assert_array_equal(tmap.waypoints, jmap.waypoints)
 
@@ -358,3 +360,138 @@ def test_k5_kernel_matches_twin_on_card(cuda, fired):
     want = tkernels.resample_update_plain(*a2)
     for g, w in zip((a1[1], *got), (a2[1], *want)):
         torch.testing.assert_close(g, w, **TOL)
+
+
+# K5's tiles, as in csrc/resample_update.cu (kTile, kStageWidth).
+K5_TILE, K5_STAGE_WIDTH = 512, 768
+K5_EDGE_CASES = ("one ancestor", "identity but one tile", "wide run", "L=40",
+                 "no matched observation", "one landmark observed twice")
+
+
+def _k5_edge_case(case, P=8192, seed=5):
+    """K5 inputs (numpy) for one edge case at P particles: the landmark
+    state, an observation batch run through the port's association,
+    and offspring bounds S built from a chosen ancestor vector."""
+    from slam_tpu_torch.models import rbpf as trbpf
+    from slam_tpu_torch.models.particles import init_particles
+
+    rng = np.random.default_rng(seed)
+    L = 40 if case == "L=40" else 192
+    n_map, live, n_new = 2 * L, L // 2, 3
+    n_match = 0 if case == "no matched observation" else 8
+    K = n_match + n_new + 1
+    table = np.full(n_map, -1, np.int32)
+    table[:live] = rng.permutation(live)
+    truth = rng.uniform(-20.0, 20.0, size=(n_map, 2))
+    lm = np.zeros((2, L, P), np.float32)
+    lm[:, table[:live]] = truth[:live].T[:, :, None]
+    lm += rng.normal(size=(2, L, P)).astype(np.float32) * 0.2
+    lm_P = np.zeros((3, L, P), np.float32)
+    lm_P[0, :live], lm_P[1, :live], lm_P[2, :live] = 0.05, 0.01, 0.04
+    seen = rng.choice(live, n_match, replace=False)
+    if case == "one landmark observed twice":
+        seen[1] = seen[0]
+    ids = np.concatenate([seen, np.arange(live, live + n_new),
+                          rng.choice(live, 1)]).astype(np.int32)
+    state = init_particles(1, L, n_map)._replace(
+        n=torch.tensor(live, dtype=torch.int32),
+        da_table=torch.tensor(table))
+    zmask = torch.tensor(np.arange(K) < n_match + n_new)
+    assoc, is_new = trbpf.associate_known(state, torch.tensor(ids), zmask)
+    matched = assoc >= 0
+    slot = torch.where(matched, assoc, 0).to(torch.int32)
+    slot_new, ok = trbpf.new_slots(state, is_new)
+    d = truth[ids]
+    z = np.column_stack([np.hypot(d[:, 0], d[:, 1]),
+                         np.arctan2(d[:, 1], d[:, 0])]).astype(np.float32)
+
+    anc = np.sort(rng.integers(0, P, P))
+    if case == "one ancestor":
+        anc[:] = P // 3 + 1
+    elif case == "identity but one tile":
+        j0 = 5 * K5_TILE
+        anc = np.arange(P)
+        anc[j0:j0 + K5_TILE] = np.sort(rng.integers(j0, j0 + K5_TILE,
+                                                    K5_TILE))
+    elif case == "wide run":
+        anc[:K5_TILE] = 8 * np.arange(K5_TILE)
+        anc[K5_TILE:] = np.sort(rng.integers(8 * K5_TILE, P, P - K5_TILE))
+    S = np.searchsorted(anc, np.arange(P), side="right").astype(np.int32)
+    xv = (rng.normal(size=(3, P)) * 0.1).astype(np.float32)
+    logw = rng.normal(size=P).astype(np.float32)
+    return dict(xv=xv, logw=logw, lm=lm, lm_P=lm_P, S=S, z=z,
+                slot=slot.numpy(), matched=matched.numpy(),
+                slot_new=slot_new.numpy(), ok=ok.numpy(), anc=anc)
+
+
+def _k5_tile_runs(anc):
+    """Per tile of K5: its ancestor run widened to 16-byte edges."""
+    first, last = anc[::K5_TILE], anc[K5_TILE - 1::K5_TILE]
+    return ((last | 3) + 1) - (first & ~3)
+
+
+def _k5_case_args(c, device):
+    return (_t(c["xv"], device), _t(c["logw"], device), _t(c["lm"], device),
+            _t(c["lm_P"], device), _t(c["S"], device), _t(c["z"], device),
+            _t(c["slot"], device), _t(c["matched"], device),
+            _t(c["slot_new"], device), _t(c["ok"], device), R)
+
+
+@pytest.mark.parametrize("case", K5_EDGE_CASES)
+def test_k5_edge_cases_are_what_they_say(case):
+    """The inputs the card's K5 edge cases run: valid bounds that decode
+    to the intended ancestors, the intended association, and on the CPU
+    the wrapper's twin updates them."""
+    c = _k5_edge_case(case)
+    P = c["S"].shape[0]
+    assert c["S"][-1] == P and np.all(np.diff(c["S"]) >= 0)
+    anc = trs.ancestors_from_bounds(torch.tensor(c["S"]), P).numpy()
+    np.testing.assert_array_equal(anc, c["anc"])
+    runs = _k5_tile_runs(anc)
+    n_match = int(c["matched"].sum())
+    slots = c["slot"][c["matched"]]
+    assert (n_match == 0) == (case == "no matched observation")
+    assert (len(set(slots)) < n_match) == (case == "one landmark observed "
+                                           "twice")
+    assert int(c["ok"].sum()) == 3
+    if case == "one ancestor":
+        assert len(set(anc)) == 1 and np.all(runs <= K5_STAGE_WIDTH)
+    elif case == "identity but one tile":
+        tiles = anc.reshape(-1, K5_TILE) != np.arange(P).reshape(-1, K5_TILE)
+        assert np.flatnonzero(tiles.any(axis=1)).tolist() == [5]
+    elif case == "wide run":
+        assert runs[0] > K5_STAGE_WIDTH and np.all(runs[1:] <= K5_STAGE_WIDTH)
+    args = _k5_case_args(c, "cpu")
+    lm0 = args[2].clone()
+    lm, lm_P = tk.resample_update(*args)
+    assert lm.shape == lm0.shape and torch.isfinite(lm).all()
+    assert torch.isfinite(lm_P).all() and torch.isfinite(args[1]).all()
+    assert torch.equal(args[2], lm0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K5_EDGE_CASES)
+def test_k5_edge_cases_on_card(cuda, case):
+    """K5 on each edge case: bit-equal to G2's gather followed by K4
+    (one operation order) and across its staged and direct branches,
+    and within TOL of its twin; for the landmark observed twice the twin
+    computes both updates from the old values, so only the first two
+    hold."""
+    c = _k5_edge_case(case)
+    runs = [_k5_case_args(c, cuda) for _ in range(4)]
+    L, P = c["lm"].shape[1], c["lm"].shape[2]
+    got = tk.resample_update(*runs[0])
+    direct = tkernels.resample_update_launch(*runs[1], staged=False)
+    xv, logw, lm, lm_P, S, *batch, _ = runs[2]
+    lm_g, lmP_g = tk.bounds_gather_multi(
+        [lm.reshape(2 * L, P), lm_P.reshape(3 * L, P)], S)
+    lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
+    tk.fused_update(xv, logw, lm_g, lmP_g, *batch, R)
+    torch.cuda.synchronize()
+    for ref in ((runs[1][1], *direct), (logw, lm_g, lmP_g)):
+        for g, w in zip((runs[0][1], *got), ref):
+            assert torch.equal(g, w)
+    if case != "one landmark observed twice":
+        want = tkernels.resample_update_plain(*runs[3])
+        for g, w in zip((runs[0][1], *got), (runs[3][1], *want)):
+            torch.testing.assert_close(g, w, **TOL)

@@ -15,8 +15,10 @@ import sys
 import numpy as np
 import pytest
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file
+from slam_tpu import config as jconfig
+from slam_tpu import maps as jmaps
+from slam_tpu_torch import config as tconfig
+from slam_tpu_torch import maps as tmaps
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 DATA = os.path.join(ROOT, "data")
@@ -26,8 +28,13 @@ MARGIN = 2.0
 
 @pytest.fixture(scope="module")
 def ring40():
-    cfg = SlamConfig.from_ini(os.path.join(DATA, "ring40.ini"))
-    return cfg, read_map_file(os.path.join(DATA, "ring40.mat"))
+    """data/ring40 read by each package's own config and map reader:
+    {"jax": (config, map), "port": (config, map)}."""
+    return {name: (config.SlamConfig.from_ini(os.path.join(DATA,
+                                                            "ring40.ini")),
+                   maps.read_map_file(os.path.join(DATA, "ring40.mat")))
+            for name, config, maps in (("jax", jconfig, jmaps),
+                                       ("port", tconfig, tmaps))}
 
 
 def _rms_ate(runtime, cfg, slam_map, method="FASTSLAM1"):
@@ -45,8 +52,8 @@ def test_fastslam1_ate_within_jax_bound(ring40):
     import slam_tpu.runtime as jrt
     import slam_tpu_torch.runtime as trt
 
-    cfg, slam_map = ring40
-    jax_ate, _ = _rms_ate(jrt, cfg, slam_map)
+    jax_ate, _ = _rms_ate(jrt, *ring40["jax"])
+    cfg, slam_map = ring40["port"]
     port_ate, result = _rms_ate(trt, cfg, slam_map)
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
@@ -59,9 +66,9 @@ def test_fastslam2_ate_within_jax_bound(ring40):
     import slam_tpu.runtime as jrt
     import slam_tpu_torch.runtime as trt
 
-    cfg, slam_map = ring40
+    cfg, slam_map = ring40["port"]
     assert cfg.SWITCH_HEADING_KNOWN    # the per-tick predict and heading
-    jax_ate, _ = _rms_ate(jrt, cfg, slam_map, "FASTSLAM2")
+    jax_ate, _ = _rms_ate(jrt, *ring40["jax"], "FASTSLAM2")
     port_ate, result = _rms_ate(trt, cfg, slam_map, "FASTSLAM2")
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
@@ -75,8 +82,6 @@ def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(
     """At P = 1024 with the heading unknown the runner predicts each
     superstep in one predict_multi call (K6b's twin on the CPU) and
     never per tick; the update takes K4 (one sync per superstep)."""
-    from slam_tpu_torch.config import SlamConfig as TSlamConfig
-    from slam_tpu_torch.maps import synthetic_map
     from slam_tpu_torch.models import FastSlam2
     from slam_tpu_torch.ops.kernels import predict as tp
     from slam_tpu_torch.runtime import Runner, compute_metrics
@@ -94,8 +99,8 @@ def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(
     monkeypatch.setattr(tp, "fs2_predict_multi_plain",
                         lambda *a, **k: twin_calls.append(1) or twin(*a, **k))
 
-    cfg = TSlamConfig(SWITCH_HEADING_KNOWN=0)
-    slam_map = synthetic_map(35, 17, radius=100.0)
+    cfg = tconfig.SlamConfig(SWITCH_HEADING_KNOWN=0)
+    slam_map = tmaps.synthetic_map(35, 17, radius=100.0)
     result = Runner(cfg, slam_map, "FASTSLAM2", n_particles=1024).run(
         seed=3, n_ticks=6 * cfg.steps_per_observe)
     assert calls == {"per_tick": 0, "multi": 6} and len(twin_calls) == 6
@@ -153,4 +158,4 @@ def test_unported_method_names_the_roadmap():
     from slam_tpu_torch.models import make_estimator
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_estimator("EKF1", SlamConfig(), 10)
+        make_estimator("EKF1", tconfig.SlamConfig(), 10)

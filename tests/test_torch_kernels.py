@@ -225,7 +225,8 @@ def test_build_raises_with_compiler_output(tmp_path):
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in build.CSRC_DIR.glob("*.cu*")}
-    assert {"planes.cuh", "philox.cuh", "observe.cu", "fused_update.cu",
+    assert {"planes.cuh", "philox.cuh", "bounds.cuh", "observe.cu",
+            "fused_update.cu",
             "gather.cu", "resample_update.cu", "predict.cu", "refine.cu",
             "jacobians.cu"} <= names
     assert [p.name for p in build.sources()] == sorted(

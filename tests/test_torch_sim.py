@@ -15,19 +15,28 @@ import numpy as np
 import pytest
 import torch
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file
+from slam_tpu import config as jconfig
+from slam_tpu import maps as jmaps
 from slam_tpu.sim import simulator as jsim
+from slam_tpu_torch import config as tconfig
+from slam_tpu_torch import maps as tmaps
 from slam_tpu_torch.sim import simulator as tsim
 
 DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data")
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+def _world(config, maps, name="ring40"):
+    """(config, map) of data/<name>, read by one package's own reader."""
+    return (config.SlamConfig.from_ini(os.path.join(DATA, f"{name}.ini")),
+            maps.read_map_file(os.path.join(DATA, f"{name}.mat")))
+
+
 @pytest.fixture(scope="module")
 def ring40():
-    cfg = SlamConfig.from_ini(os.path.join(DATA, "ring40.ini"))
-    return cfg, read_map_file(os.path.join(DATA, "ring40.mat"))
+    """data/ring40 for each package: ((jax config, map), (port config,
+    map))."""
+    return _world(jconfig, jmaps), _world(tconfig, tmaps)
 
 
 def _assert_vehicle(tv, jv):
@@ -48,10 +57,11 @@ def _assert_obs(to, jo):
 
 @pytest.mark.parametrize("noise", ["off", "injected"])
 def test_control_and_observe_steps_match_jax(ring40, noise):
-    cfg, slam_map = ring40
+    (cfg, jmap), (tcfg, tmap) = ring40
     if noise == "off":
-        cfg = cfg.replace(SWITCH_CONTROL_NOISE=0, SWITCH_SENSOR_NOISE=0)
-    js, ts = jsim.Simulator(cfg, slam_map), tsim.Simulator(cfg, slam_map)
+        kw = dict(SWITCH_CONTROL_NOISE=0, SWITCH_SENSOR_NOISE=0)
+        cfg, tcfg = cfg.replace(**kw), tcfg.replace(**kw)
+    js, ts = jsim.Simulator(cfg, jmap), tsim.Simulator(tcfg, tmap)
     assert ts.max_obs == js.max_obs
     jstate, tstate = js.init(seed=3), ts.init(seed=3)
     jcontrol, jobserve = jax.jit(js.control_step), jax.jit(js.observe_step)
@@ -77,9 +87,10 @@ def test_control_and_observe_steps_match_jax(ring40, noise):
 
 
 def test_rollout_controls_matches_jax(ring40):
-    cfg, slam_map = ring40
-    cfg = cfg.replace(SWITCH_CONTROL_NOISE=0, NUMBER_LOOPS=1)
-    js, ts = jsim.Simulator(cfg, slam_map), tsim.Simulator(cfg, slam_map)
+    kw = dict(SWITCH_CONTROL_NOISE=0, NUMBER_LOOPS=1)
+    (cfg, jmap), (tcfg, tmap) = ring40
+    js = jsim.Simulator(cfg.replace(**kw), jmap)
+    ts = tsim.Simulator(tcfg.replace(**kw), tmap)
     n = 600
     _, jposes, jdones = jax.jit(js.rollout_controls,
                                 static_argnums=1)(js.init(seed=1), n)
@@ -89,15 +100,16 @@ def test_rollout_controls_matches_jax(ring40):
 
 
 def test_default_max_obs_matches_jax(ring40):
-    cfg, slam_map = ring40
-    dense = read_map_file(os.path.join(DATA, "dense200.mat"))
-    for m in (slam_map, dense):
+    (cfg, jmap), (_, tmap) = ring40
+    for jm, tm in ((jmap, tmap), (_world(jconfig, jmaps, "dense200")[1],
+                                  _world(tconfig, tmaps, "dense200")[1])):
         for r in (cfg.MAX_RANGE, 10.0, 60.0):
-            assert tsim._default_max_obs(m, r) == jsim._default_max_obs(m, r)
+            assert tsim._default_max_obs(tm, r) == jsim._default_max_obs(
+                jm, r)
 
 
 def test_heading_measurement_is_truth_plus_scaled_uniform(ring40):
-    cfg, slam_map = ring40
+    _, (cfg, slam_map) = ring40
     ts = tsim.Simulator(cfg, slam_map)
     state, _ = ts.control_step(ts.init(seed=2))
     _, phi = ts.heading_measurement(state, u=torch.tensor(0.25))
