@@ -17,10 +17,15 @@ Phases, in order; any failure raises and exits non-zero:
    with a fired resample, and on edge cases at P=2^16 (all columns from
    one ancestor; the identity but for one tile; a tile whose ancestor
    run is wider than the staging width; L=40; no matched observation;
-   one landmark observed twice); K6 (T=8, P=2^20) with the noise on and
-   off; K3 (K=15, P=2^20) with matched and unmatched slots; K6b (T=8,
-   P=2^20) with the noise on and off; K1 (K=15, P=2^20). Gathers must
-   be bit-equal; float outputs within rtol 1e-5, atol 1e-5 (the kernels
+   one landmark observed twice); K6 and K6b with the noise on and off
+   at T=8, P=2^20, at a ragged P (2^20 + 37), at a T (5) that is no
+   multiple of the tick loop's unrolling and at a T (300, P=4133) that
+   takes more than one launch; K3 (K=15, P=2^20) with matched and unmatched
+   slots; K1 (K=15, P=2^20). Gathers, K6 and K6b must be bit-equal to
+   their twins (the predicts keep the twins' operation order, and the
+   sweep below holds their sincosf and fast wrap to sinf, cosf and the
+   fmodf wrap on every float32 bit pattern); the other float outputs
+   within rtol 1e-5, atol 1e-5 (the kernels
    sum over k in another order than the twins, and the device libm
    rounds sin/cos/log differently from torch's), K3 within the JAX
    package's golden tolerances of the refinement (xv rtol 1e-4, atol
@@ -35,7 +40,11 @@ Phases, in order; any failure raises and exits non-zero:
    kernel, kernel, plain), the kernel's device time with torch.profiler,
    and where one PyTorch call computes the same function (G1:
    index_select, G2: repeat_interleave) that call too; and computes each
-   kernel's bound from the bytes and operations of these inputs.
+   kernel's bound from the bytes and operations of these inputs. K6
+   and K6b are bound by instruction issue, which that bound does not
+   see: for them the SASS instructions of 8 ticks are counted
+   with cuobjdump and set against the card's issue rate at the SM clock
+   that nvidia-smi reports while they run (issue_bound_ms, issue_share).
 4. FastSLAM 1 end to end through Runner + compute_metrics; the launch
    counters are reset before each run and read after it:
    (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2 and
@@ -54,7 +63,9 @@ Phases, in order; any failure raises and exits non-zero:
        synthetic_map(35, 17, radius=100)), P = 2^20, 1024 ticks, seeds
        3, 4, 5: K6b once per superstep, K3, K4 and G2, and not K2, G1,
        K5 or K6; one host sync per superstep.
-   No slice may launch K1, which lies on no path. Each 3-seed RMS ATE
+   No slice may launch K1, which lies on no path. No run names a
+   device: the runner, the simulator, the estimator and the final state
+   must be on the card by default. Each 3-seed RMS ATE
    must be finite and below twice the JAX package's
    on the same world and seeds (JAX_ANCHOR_ATE_M, JAX_CONFIG5_ATE_M,
    JAX_FS2_ANCHOR_ATE_M, JAX_FS2_WEBMAP_ATE_M).
@@ -161,8 +172,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per unit of work, counted from csrc/planes.cuh, predict.cu
 # and philox.cuh: each arithmetic operation, comparison, integer
-# operation and libm call as one (a libm call is several instructions,
-# so these bounds are low).
+# operation and libm call as one. These bounds are low twice over: a
+# libm call is tens of instructions, and 67e12/s counts a fused
+# multiply-add as two operations while this build (--fmad=false) fuses
+# none, so its multiplies and adds issue at half that rate at best. K6
+# and K6b, which instruction issue bounds, get an issue bound beside
+# this one (sass_counts, issue_bound).
 OPS_JACOBIAN = 65    # jacobians_planes, per (k, p)
 OPS_MATCH = 150      # planes.cuh:fs1_match, per matched (k, p)
 OPS_INIT = 35        # feature_init_planes, per new (k, p)
@@ -170,6 +185,16 @@ OPS_REFINE = 190     # K3 per matched (k, p): Jacobians, refine_pose_planes
 OPS_TICK_FS1 = 19    # K6's bicycle step, per (tick, p)
 OPS_NOISE = 120      # Philox4x32-10 (98) and Box-Muller (22), per (tick, p)
 OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
+
+# The issue bound of K6 and K6b: a thread's SASS instructions over the
+# card's issue rate, one warp instruction per scheduler and clock, with
+# the integer multiply-adds (IMAD, half the float32 lanes) taking two
+# slots.
+SMS, SCHEDULERS_PER_SM, LANES = 132, 4, 32
+P_RAGGED = 2 ** 20 + 37
+# A T that is no multiple of the tick loop's unrolling, and a T and P
+# whose ticks take two launches (csrc/predict.cu:kMaxTicks is 256).
+T_ODD, T_LONG, P_LONG = 5, 300, 4133
 
 KERNELS = {
     "K2": ("slam_tpu_torch/csrc/observe.cu",
@@ -312,9 +337,13 @@ def check_kernels(dev) -> dict:
 
     results.update(check_gathers(dev, g, fs2_L))
     results["K5"] = check_k5(dev, rng, g)
-    results["K6"] = check_k6(dev, g)
+    # K6's main path draws (FastSLAM 1 forces the noise on); K6b's does
+    # not (SWITCH_PREDICT_NOISE defaults to 0).
+    results["K6"] = check_predict(dev, g, "K6", C5_P, fs2=False,
+                                  timed_noise=True)
     results["K3"] = check_k3(dev, rng, g)
-    results["K6b"] = check_k6b(dev, g)
+    results["K6b"] = check_predict(dev, g, "K6b", FS2_P, fs2=True,
+                                   timed_noise=False)
     results["K1"] = check_k1(dev, rng, g)
     return results
 
@@ -626,39 +655,208 @@ def check_k5(dev, rng, g) -> dict:
                 **layout, **times)
 
 
-def check_k6(dev, g) -> dict:
-    """K6 over T = 8 ticks at P = 2^20, draw for draw against its twin,
-    with the noise on (the main path's arm, timed) and off."""
+def predict_inputs(dev, g, P, T, fs2: bool):
+    """Poses xv [3, P] (and, ``fs2``, pose covariances Pv [6, P]),
+    controls [T, 2] and a key for K6 or K6b."""
     import torch
 
-    from slam_tpu_torch.geometry import wrap_angle
-    from slam_tpu_torch.ops.kernels import predict as kp
-
-    P, T = C5_P, T_PREDICT
     f32 = dict(dtype=torch.float32, device=dev)
-    xv = torch.randn((3, P), generator=g, **f32)
+    state = [torch.randn((3, P), generator=g, **f32)]
+    if fs2:
+        Pv = torch.zeros((6, P), **f32)
+        Pv[0], Pv[3], Pv[5] = 0.02, 0.02, 0.01
+        state.append(Pv)
     ctl = torch.stack([3.0 + 0.3 * torch.randn(T, generator=g, **f32),
                        0.1 * torch.randn(T, generator=g, **f32)], dim=1)
     seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
                          generator=g, device=dev)
+    return state, ctl, seed
+
+
+def check_predict(dev, g, name, P, fs2: bool, timed_noise: bool) -> dict:
+    """K6 (or, ``fs2``, K6b) bit for bit against its twin, the noise on
+    and off: at T = 8 and P particles (the main path's shape, whose
+    ``timed_noise`` arm is timed), at T = 8 and a ragged P, at T_ODD and
+    at T_LONG."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import predict as kp
+
+    kernel, plain = ((kp.fs2_predict_multi, kp.fs2_predict_multi_plain)
+                     if fs2 else
+                     (kp.fs1_predict_multi, kp.fs1_predict_multi_plain))
     err = 0.0
-    for noise in (False, True):
-        kw = dict(wheelbase=4.0, dt=0.025, add_noise=noise)
-        got = kp.fs1_predict_multi(xv.clone(), seed, ctl, Q, **kw)
-        want = kp.fs1_predict_multi_plain(xv.clone(), seed, ctl, Q, **kw)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got[:2], want[:2], **TOL)
-        dth = wrap_angle(got[2] - want[2])
-        torch.testing.assert_close(dth, torch.zeros_like(dth), **TOL)
-        err = max(err, max_abs_err([got[:2], dth],
-                                   [want[:2], torch.zeros_like(dth)]))
-    a, b = xv.clone(), xv.clone()
-    return dict(max_abs_err=err, shape=f"T={T} P={P}",
-                bytes=4 * 6 * P + 8 * T + 8,
-                ops=P * T * (OPS_TICK_FS1 + OPS_NOISE),
-                **measure(lambda: kp.fs1_predict_multi(a, seed, ctl, Q, **kw),
-                          lambda: kp.fs1_predict_multi_plain(b, seed, ctl, Q,
-                                                             **kw)))
+    for T, Pc in ((T_PREDICT, P), (T_PREDICT, P_RAGGED),
+                  (T_ODD, P_RAGGED), (T_LONG, P_LONG)):
+        state, ctl, seed = predict_inputs(dev, g, Pc, T, fs2)
+        for noise in (True, False):
+            kw = dict(wheelbase=4.0, dt=0.025, add_noise=noise)
+            got = [a.clone() for a in state]
+            want = [a.clone() for a in state]
+            kernel(*got, seed, ctl, Q, **kw)
+            plain(*want, seed, ctl, Q, **kw)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  f"{name}: non-finite output")
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{name} T={T} P={Pc} noise={noise}: not bit-equal to "
+                  f"its twin (max abs err {max_abs_err(got, want):.3g})")
+            check(not torch.equal(got[0], state[0]),
+                  f"{name}: the poses did not move")
+            err = max(err, max_abs_err(got, want))
+        print(f"kernel {name} T={T} P={Pc}: bit-equal to its twin, noise "
+              "on and off", flush=True)
+    state, ctl, seed = predict_inputs(dev, g, P, T_PREDICT, fs2)
+    a, b = [t.clone() for t in state], [t.clone() for t in state]
+    kw = dict(wheelbase=4.0, dt=0.025, add_noise=timed_noise)
+
+    def run():
+        return kernel(*a, seed, ctl, Q, **kw)
+    times = measure(run, lambda: plain(*b, seed, ctl, Q, **kw))
+    rows = 18 if fs2 else 6          # floats read and written per particle
+    ops = OPS_TICK_FS2 if fs2 else OPS_TICK_FS1
+    return dict(max_abs_err=err,
+                shape=f"T={T_PREDICT} P={P} noise "
+                      f"{'on' if timed_noise else 'off'}",
+                bytes=4 * rows * P + 8 * T_PREDICT + 8,
+                ops=P * T_PREDICT * (ops + (OPS_NOISE if timed_noise else 0)),
+                sm_clock_mhz=sm_clock_mhz_under(run), threads=P, **times)
+
+
+def sm_clock_mhz_under(fn) -> float:
+    """The SM clock nvidia-smi reports while ``fn`` is launched back to
+    back: the launches go on until the query has returned."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    while proc.poll() is None:
+        for _ in range(50):
+            fn()
+    torch.cuda.synchronize()
+    check(proc.returncode == 0, "nvidia-smi could not read clocks.sm")
+    return float(proc.stdout.read().strip().splitlines()[0])
+
+
+# The instantiations the main paths launch: K6 with the noise on, K6b
+# with it off (their mangled names' template arguments).
+SASS_KERNELS = {"K6": "fs1_predict_multi_kernelILb1EE",
+                "K6b": "fs2_predict_multi_kernelILb0EE"}
+TICK_UNROLL = 4  # kTickUnroll in csrc/predict.cu
+# SASS that only a slow path runs: an out-of-line call (division, square
+# root), the stack and float64 work of the large-argument trig reduction,
+# fmodf's truncation.
+SASS_COLD = ("CALL", "RET", "STL", "LDL", "DMUL", "FRND")
+
+
+def sass_hot_path(ops, trips: int) -> list:
+    """The opcodes a thread issues on its usual way through a predict
+    kernel. ``ops``: its SASS as (address, predicated, opcode, operands).
+    The tick loop (the widest backward branch) is walked ``trips`` times.
+    A forward branch is followed when it is unconditional, or when what
+    it jumps over holds a slow-path instruction (SASS_COLD) or a loop
+    other than the tick loop; any other conditional branch falls
+    through. A predicated instruction counts: it takes its issue slot
+    whatever the predicate."""
+    at = {addr: i for i, (addr, *_) in enumerate(ops)}
+    jumps = {i: at[int(args.split("0x")[-1].split()[0], 16)]
+             for i, (_, _, op, args) in enumerate(ops)
+             if op.split(".")[0] == "BRA"}
+    loop = max((i - j, i) for i, j in jumps.items() if j <= i)[1]
+
+    def cold(i, j):
+        return any(ops[k][2].split(".")[0] in SASS_COLD
+                   or jumps.get(k, k + 1) <= k for k in range(i + 1, j))
+
+    hot, i = [], 0
+    while True:
+        _, pred, op, _ = ops[i]
+        hot.append(op.split(".")[0])
+        if hot[-1] == "EXIT" and not pred:
+            return hot
+        j = jumps.get(i, i + 1)
+        if i == loop:
+            trips -= 1
+            i = j if trips else i + 1
+        elif j > i + 1 and not i < loop < j and (not pred or cold(i, j)):
+            i = j
+        else:
+            check(j > i, f"SASS: a loop on the hot path at {ops[i][0]:#x}")
+            i += 1
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel: SASS instruction counts} of K6's and K6b's main-path
+    instantiations, by ``cuobjdump -sass`` on the built library: the hot
+    path of one thread through T = 8 ticks (sass_hot_path), split by the
+    pipe that bounds its issue: ``imad`` the integer multiply-adds
+    (IMAD*, IMUL*, UIMAD*: half the float32 lanes), ``f32`` float32
+    arithmetic, compares and selects (F* but conversions), ``other`` the
+    rest; and ``static``, every instruction of the kernel, slow paths
+    included. K6b's hot path is that of the 248 threads of a block that
+    compute no tick's shared terms."""
+    import os
+    import re
+
+    from slam_tpu_torch.ops.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    inst = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][\w.]*)\s*([^;]*);")
+    counts = {}
+    for name, tag in SASS_KERNELS.items():
+        blocks = [b for b in text.split("Function : ")[1:]
+                  if tag in b.split(None, 1)[0]]
+        check(len(blocks) == 1, f"cuobjdump lists {len(blocks)} {tag}")
+        ops = [(int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4))
+               for m in map(inst.match, blocks[0].splitlines()) if m]
+        hot = sass_hot_path(ops, T_PREDICT // TICK_UNROLL)
+        imad = sum(op in ("IMAD", "IMUL", "UIMAD") for op in hot)
+        f32 = sum(op[0] == "F" and not op.startswith("F2") for op in hot)
+        counts[name] = dict(hot=len(hot), imad=imad, f32=f32,
+                            other=len(hot) - imad - f32, static=len(ops))
+    return counts
+
+
+def issue_bound(st: dict, sass: dict) -> dict:
+    """The least time the card's schedulers need to issue the kernel's
+    instructions, as compiled, at the clock it ran at: ``threads`` x
+    (f32 + other + 2 imad) issue slots over SMS x SCHEDULERS_PER_SM x
+    LANES slots per clock; its share is of the kernel's device time (at
+    these sizes the events time can be the host's enqueue rate). It
+    measures how well this code keeps the issue pipes busy, not how
+    little code the function needs: a wasteful body scores as high as a
+    lean one, so kernels are ranked by ``bound_ms``, not by this."""
+    slots = st["threads"] * (sass["f32"] + sass["other"] + 2 * sass["imad"])
+    rate = SMS * SCHEDULERS_PER_SM * LANES * st["sm_clock_mhz"] * 1e6
+    ms = slots / rate * 1e3
+    return dict(issue_bound_ms=ms,
+                issue_share=ms / (st["device_ms"] or st["ms"]), sass=sass)
+
+
+def check_fast_math(dev) -> dict:
+    """K6's and K6b's two substitutions on every float32 bit pattern:
+    sincosf against sinf and cosf, wrap_angle_fast against wrap_angle."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import predict as kp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = kp.fast_math_sweep(dev)
+    seconds = time.perf_counter() - t0
+    print(f"fast-math sweep over 2^32 float32 patterns: {json.dumps(sweep)} "
+          f"in {seconds:.2f} s", flush=True)
+    check(not any(sweep[k] for k in ("sin_mismatches", "cos_mismatches",
+                                     "wrap_mismatches")),
+          f"fast-math sweep: K6 and K6b use a substitute that is not "
+          f"bit-equal to what it replaces: {sweep}")
+    return dict(sweep, seconds=seconds)
 
 
 def gathered_planes(dev, rng, g, P, K):
@@ -732,42 +930,6 @@ def check_k3(dev, rng, g) -> dict:
                           lambda: kk.fs2_refine_plain(*args)))
 
 
-def check_k6b(dev, g) -> dict:
-    """K6b over T = 8 ticks at P = 2^20, draw for draw against its twin,
-    with the noise on and off (the main path's arm, as
-    SWITCH_PREDICT_NOISE defaults to 0, timed)."""
-    import torch
-
-    from slam_tpu_torch.ops.kernels import predict as kp
-
-    P, T = FS2_P, T_PREDICT
-    f32 = dict(dtype=torch.float32, device=dev)
-    xv = torch.randn((3, P), generator=g, **f32)
-    Pv = torch.zeros((6, P), **f32)
-    Pv[0], Pv[3], Pv[5] = 0.02, 0.02, 0.01
-    ctl = torch.stack([3.0 + 0.3 * torch.randn(T, generator=g, **f32),
-                       0.1 * torch.randn(T, generator=g, **f32)], dim=1)
-    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
-                         generator=g, device=dev)
-    err = 0.0
-    for noise in (True, False):
-        kw = dict(wheelbase=4.0, dt=0.025, add_noise=noise)
-        got = kp.fs2_predict_multi(xv.clone(), Pv.clone(), seed, ctl, Q,
-                                   **kw)
-        want = kp.fs2_predict_multi_plain(xv.clone(), Pv.clone(), seed, ctl,
-                                          Q, **kw)
-        torch.cuda.synchronize()
-        err = max(err, compare_poses(got[0], want[0], TOL))
-        torch.testing.assert_close(got[1], want[1], **TOL)
-        err = max(err, max_abs_err([got[1]], [want[1]]))
-    a, b = (xv.clone(), Pv.clone()), (xv.clone(), Pv.clone())
-    return dict(max_abs_err=err, shape=f"T={T} P={P} noise off",
-                bytes=4 * 18 * P + 8 * T + 8, ops=P * T * OPS_TICK_FS2,
-                **measure(lambda: kp.fs2_predict_multi(*a, seed, ctl, Q, **kw),
-                          lambda: kp.fs2_predict_multi_plain(*b, seed, ctl, Q,
-                                                             **kw)))
-
-
 def check_k1(dev, rng, g) -> dict:
     """K1 at K = 15, P = 2^20 against pk.jacobians_planes."""
     import torch
@@ -832,20 +994,31 @@ def run_once(dev, kind, cfg, slam_map, P, seed, ticks):
     """One run through Runner, as a user calls it: (result, finalized
     particle state). ``kind``: "eager" (-method FASTSLAM1), "fs2"
     (-method FASTSLAM2), "deferred" (FastSlam1Deferred with K6) or
-    "deferred-per-tick" (FastSlam1Deferred with the per-tick predict)."""
+    "deferred-per-tick" (FastSlam1Deferred with the per-tick predict).
+    No device is named: everything must come to lie on the card ``dev``
+    by default."""
+    import torch
+
     from slam_tpu_torch.models import FastSlam1Deferred
     from slam_tpu_torch.runtime import Runner
     if kind in ("eager", "fs2"):
         method = "FASTSLAM2" if kind == "fs2" else "FASTSLAM1"
-        runner = Runner(cfg, slam_map, method, n_particles=P, device=dev)
+        runner = Runner(cfg, slam_map, method, n_particles=P)
     else:
-        est = FastSlam1Deferred(cfg, slam_map.n_landmarks, device=dev,
+        est = FastSlam1Deferred(cfg, slam_map.n_landmarks,
                                 fused_predict=kind == "deferred")
         runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=P,
                         estimator=est)
     result = runner.run(seed=seed, n_ticks=ticks)
     final = (runner.est.finalize(result.final_state)
              if hasattr(runner.est, "finalize") else result.final_state)
+    on_card = [runner.device, runner.est.device, runner.sim.device,
+               runner.sim.landmarks.device,
+               *(t.device for t in final if isinstance(t, torch.Tensor))]
+    check(all(d.type == "cuda" and (d.index or 0) == (dev.index or 0)
+              for d in on_card),
+          f"{kind}: with no device named the run is not on {dev}: "
+          f"{sorted({str(d) for d in on_card})}")
     return result, final
 
 
@@ -984,9 +1157,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_stats = check_kernels(dev)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    fast_math = check_fast_math(dev)
+    sass = sass_counts(lib_path)
     for name, st in kernel_stats.items():
         b_ms, by = bound(st["bytes"], st["ops"])
         st.update(bound_ms=b_ms, bound_by=by, share=b_ms / st["ms"])
+        if name in sass:
+            st.update(issue_bound(st, sass[name]))
+            print(f"kernel {name}: issue bound {st['issue_bound_ms']:.4f} ms "
+                  f"(share {st['issue_share']:.3f}) from {sass[name]} at "
+                  f"{st['sm_clock_mhz']:.0f} MHz", flush=True)
         lib = ("" if st["library_ms"] is None else
                f", library {st['library_ms']:.4f} ms (device "
                f"{st['library_device_ms']})")
@@ -1061,6 +1241,10 @@ def main() -> int:
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",
                                            "staged_tiles")})
+        if name in sass:
+            row.update({f: st[f] for f in ("issue_bound_ms", "issue_share",
+                                           "sass", "sm_clock_mhz")},
+                       fast_math_sweep=fast_math)
         table.append(row)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}))

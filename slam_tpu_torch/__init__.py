@@ -15,6 +15,8 @@ module names so each port can be found beside its counterpart:
   particle state.
 - ``slam_tpu_torch.runtime`` — the superstep run loop and the
   DataGatherer-format metrics.
+- ``slam_tpu_torch.device`` — ``default_device``: the entry points run
+  on the card unless the caller names a device, and raise without one.
 
 Only ``torch`` and ``numpy`` are imported; never ``jax``, and nothing of
 the ``slam_tpu`` package.
@@ -23,11 +25,13 @@ the ``slam_tpu`` package.
 __version__ = "0.1.0"
 
 from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap, read_map_file, synthetic_map
 
 __all__ = [
     "SlamConfig",
     "SlamMap",
+    "default_device",
     "read_map_file",
     "synthetic_map",
     "__version__",

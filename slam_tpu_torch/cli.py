@@ -3,9 +3,11 @@
 Flag-compatible with the JAX package's CLI for the ported slices:
 ``-m <map.mat>``, ``-n <name>``, ``-method FASTSLAM1`` or ``FASTSLAM2``,
 ``-particles``, ``-ticks``, ``-seed``, ``-out``, and any config key as
-``-KEY value``. The map's ``<map>.ini`` is loaded when it exists. ``-device`` picks
-``cuda`` or ``cpu``; by default ``cuda`` when a card is present. The
-device is printed with the banner.
+``-KEY value``. The map's ``<map>.ini`` is loaded when it exists. The run
+takes place on the card (``cuda``); without one the command fails with
+the reason on stderr and a non-zero exit code. ``-device cpu`` is the
+only way to a CPU run, ``-device cuda:1`` picks another card. The device
+is printed with the banner.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ Usage: python -m slam_tpu_torch [options]
     -particles <N>   particle count
     -ticks <N>       max control ticks
     -seed <N>        PRNG seed
-    -device <dev>    cuda | cpu (default: cuda if available)
+    -device <dev>    cuda | cuda:N | cpu (default: cuda; fails without a card)
     -out <dir>       report output directory (default .)
     -KEY <value>     override any config key (e.g. -SWITCH_HEADING_KNOWN 0)
     -h               this help
@@ -63,10 +65,12 @@ def main(argv: list[str] | None = None) -> int:
     out_dir = flags.pop("out", ".")
     device = flags.pop("device", None)
 
-    import torch
-
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    from slam_tpu_torch.device import default_device
+    try:
+        device = default_device(device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
 
     ini = os.path.splitext(map_path)[0] + ".ini"
     if os.path.exists(ini):

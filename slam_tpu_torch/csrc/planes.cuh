@@ -27,6 +27,34 @@ __device__ __forceinline__ float wrap_angle(float a) {
   return r - kPi;
 }
 
+// wrap_angle, bit for bit, without fmodf where the argument lies within
+// two periods of the result's range, as a heading plus one tick's turn
+// always does. With s = a + pi and m = 2 pi (both as rounded to
+// float32): for s in [0, m) fmodf(s, m) is s; for s in [m, 2 m) it is
+// s - m, which float32 holds exactly (Sterbenz: m <= s <= 2 m), so the
+// subtraction rounds nothing; for s in (-m, 0) it is s, which
+// wrap_angle then lifts by m with one rounded addition, as here.
+// Everything else (|s| >= 2 m, NaN) goes through fmodf. fmodf is an
+// exact iterative remainder of some 30 instructions; the three ranges
+// cost a few compares and selects. chip_smoke.py and the card tests
+// compare the two functions on every float32 bit pattern
+// (predict.cu:fast_math_sweep_kernel).
+__device__ __forceinline__ float wrap_angle_fast(float a) {
+  const float s = a + kPi;
+  float r;
+  if (s >= 0.0f && s < kTwoPi) {
+    r = s;
+  } else if (s >= kTwoPi && s < 2.0f * kTwoPi) {
+    r = s - kTwoPi;
+  } else if (s < 0.0f && s > -kTwoPi) {
+    r = s + kTwoPi;
+  } else {
+    r = fmodf(s, kTwoPi);
+    if (r != 0.0f && r < 0.0f) r += kTwoPi;
+  }
+  return r - kPi;
+}
+
 // The JAX package's atan2: odd minimax polynomial for atan on [0, 1]
 // and quadrant reconstruction (slam_tpu/ops/planes.py:atan2_poly).
 __device__ __forceinline__ float atan2_poly(float y, float x) {

@@ -20,7 +20,8 @@ ESTIMATORS = {"FASTSLAM1": FastSlam1, "FASTSLAM2": FastSlam2}
 
 
 def make_estimator(method: str, config, n_map_landmarks: int, device=None):
-    """Method-string dispatch (the reference's ``-method``)."""
+    """Method-string dispatch (the reference's ``-method``); the
+    estimator runs on the card unless ``device`` names another."""
     cls = ESTIMATORS.get(method.upper())
     if cls is None:
         raise NotImplementedError(

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.device import default_device
 from slam_tpu_torch.models import rbpf
 from slam_tpu_torch.models.particles import (
     DeferredState,
@@ -110,13 +111,14 @@ def update_at_pose(state: ParticleState, z, ids, slot, matched, is_new, R,
 
 
 class FastSlam1:
-    """Config-bound FastSLAM 1.0 on one device."""
+    """Config-bound FastSLAM 1.0 on one device: the card, unless
+    ``device`` names another (``default_device``)."""
 
     def __init__(self, config: SlamConfig, n_map_landmarks: int,
                  device=None):
         self.config = config
         self.n_map = n_map_landmarks
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         cap = config.max_landmarks or n_map_landmarks
         self.capacity = -(-cap // 8) * 8
         self.Q = np.diag(np.asarray(config.Qe, np.float32))

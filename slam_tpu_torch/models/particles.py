@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from slam_tpu_torch.device import default_device
 from slam_tpu_torch.ops.kernels import bounds_gather_multi, sorted_gather_multi
 
 FIELDS = ("logw", "xv", "Pv", "lm", "lm_P", "n", "da_table")
@@ -49,8 +50,10 @@ class ParticleState(NamedTuple):
 
 def init_particles(n_particles: int, capacity: int, n_map_landmarks: int,
                    device=None, dtype=torch.float32) -> ParticleState:
-    """Uniform weights, origin poses, empty maps."""
+    """Uniform weights, origin poses, empty maps, on ``device`` (none
+    named: the card, ``device.default_device``)."""
     P = n_particles
+    device = default_device(device)
     return ParticleState(
         logw=torch.full((P,), -math.log(float(P)), dtype=dtype,
                         device=device),
@@ -66,7 +69,9 @@ def init_particles(n_particles: int, capacity: int, n_map_landmarks: int,
 
 def state_from_numpy(arrays, device=None) -> ParticleState:
     """ParticleState from a mapping of the JAX package's field names to
-    arrays (numpy, or anything ``np.asarray`` takes)."""
+    arrays (numpy, or anything ``np.asarray`` takes), on ``device`` (none
+    named: the card, ``device.default_device``)."""
+    device = default_device(device)
     return ParticleState(**{
         f: torch.from_numpy(np.array(arrays[f], copy=True)).to(device)
         for f in FIELDS})
@@ -93,7 +98,9 @@ class DeferredState(NamedTuple):
 def deferred_state_from_numpy(arrays, device=None) -> DeferredState:
     """DeferredState from the JAX carry's fields: ``arrays["ps"]`` a
     mapping of ParticleState fields, ``arrays["S"]`` the bounds; other
-    entries (the window metadata) are ignored."""
+    entries (the window metadata) are ignored. ``device`` as in
+    ``state_from_numpy``."""
+    device = default_device(device)
     S = np.asarray(arrays["S"], dtype=np.int32)
     identity = np.arange(1, S.shape[0] + 1, dtype=np.int32)
     return DeferredState(ps=state_from_numpy(arrays["ps"], device),

@@ -12,7 +12,10 @@ the plain twins reproduce the kernels' stream draw for draw.
 
 A CPU tensor goes to the twin, a CUDA tensor to ``csrc/predict.cu``;
 nothing falls back. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. The kernels keep the twins' operation order and
+are bit-equal to them on the card; the two places where they compute a
+value another way (``sincosf``, the heading wrap without ``fmodf``) are
+held to the twins' way on every float32 by ``fast_math_sweep``.
 """
 
 from __future__ import annotations
@@ -204,3 +207,28 @@ def fs2_predict_multi(xv, Pv, seed, controls, Q, *, wheelbase: float,
 
 
 fs2_predict_multi.launches = 0
+
+
+def fast_math_sweep(device) -> dict:
+    """Holds the two substitutions of ``csrc/predict.cu`` to what they
+    replace, on the card, over all 2^32 float32 bit patterns: ``sincosf``
+    against ``sinf`` and ``cosf``, and ``planes.cuh:wrap_angle_fast``
+    against ``wrap_angle``. Returns the counts of arguments that differ
+    (NaN equals NaN) and the least differing bit pattern of each pair,
+    ``None`` if there is none. K6 and K6b are bit-equal to their twins
+    only while every count is 0."""
+    device = torch.device(device)
+    _require(device.type == "cuda", "fast_math_sweep runs on a CUDA device")
+    none = 2 ** 32
+    out = torch.tensor([0, 0, 0, none, none], dtype=torch.int64,
+                       device=device)
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        err = lib.slam_predict_fast_math_sweep(
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, "slam_predict_fast_math_sweep")
+    sin, cos, wrap, first_trig, first_wrap = out.tolist()
+    return dict(sin_mismatches=sin, cos_mismatches=cos,
+                wrap_mismatches=wrap,
+                first_trig=None if first_trig == none else first_trig,
+                first_wrap=None if first_wrap == none else first_wrap)

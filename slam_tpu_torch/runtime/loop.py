@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap
 from slam_tpu_torch.models import make_estimator, rbpf
 from slam_tpu_torch.sim.simulator import Simulator
@@ -51,7 +52,8 @@ MULTI_ALIGN = 1024   # predict_multi when P is a multiple of this
 
 
 class Runner:
-    """Runs one config, map and method on one device.
+    """Runs one config, map and method on one device: the card, unless
+    ``device`` names another (``default_device``).
 
     ``estimator``: a prebuilt estimator with the same interface (e.g.
     ``FastSlam1Deferred``) in place of the method's default; the run
@@ -65,7 +67,7 @@ class Runner:
         self.method = method.upper()
         if device is None and estimator is not None:
             device = estimator.device
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         if estimator is None:
             estimator = make_estimator(self.method, config,
                                        slam_map.n_landmarks,
@@ -88,7 +90,8 @@ class Runner:
                                  axis=1).sum()
             cap = int(1.6 * cfg.NUMBER_LOOPS * seg / (cfg.V *
                                                       cfg.DT_CONTROLS)) + 64
-        sim = Simulator(cfg.replace(SWITCH_CONTROL_NOISE=0), self.map)
+        sim = Simulator(cfg.replace(SWITCH_CONTROL_NOISE=0), self.map,
+                        device="cpu")
         _, _, dones = sim.rollout_controls(sim.init(), cap)
         dones = dones.numpy()
         idx = int(np.argmax(dones)) if dones.any() else cap

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap
 from slam_tpu_torch.sim.sensors import Observation, observe
 from slam_tpu_torch.sim.vehicle import (
@@ -43,11 +44,12 @@ def _f32_sqrt(v: float) -> float:
 
 
 class Simulator:
-    """Simulation for one (config, map) pair on one device."""
+    """Simulation for one (config, map) pair on one device: the card,
+    unless ``device`` names another (``default_device``)."""
 
     def __init__(self, config: SlamConfig, slam_map: SlamMap, device=None):
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device)
         self.landmarks = torch.as_tensor(slam_map.landmarks,
                                          dtype=torch.float32,
                                          device=self.device)

@@ -170,7 +170,7 @@ def test_deferred_rounds_match_jax(n_min_fracs, monkeypatch):
     jd = jfs1.DeferredState(ps=jps, S=jnp.arange(1, P + 1, dtype=jnp.int32),
                             lo=lo, nch=nch, ident=ident)
     td = deferred_state_from_numpy({"ps": _as_numpy(jps),
-                                    "S": np.asarray(jd.S)})
+                                    "S": np.asarray(jd.S)}, device="cpu")
     assert not td.pending
     jR = jnp.asarray(R)
     identity = np.arange(1, P + 1)
@@ -233,9 +233,9 @@ def test_runner_deferred_matches_eager(monkeypatch):
     k5 = tfs1.resample_update
     monkeypatch.setattr(tfs1, "resample_update",
                         lambda *a: fires.append(1) or k5(*a))
-    r_e = Runner(cfg, slam_map, "FASTSLAM1",
-                 n_particles=1024).run(seed=3, n_ticks=200)
-    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks,
+    r_e = Runner(cfg, slam_map, "FASTSLAM1", n_particles=1024,
+                 device="cpu").run(seed=3, n_ticks=200)
+    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks, device="cpu",
                                  fused_predict=False)
     r_d = Runner(cfg, slam_map, "FASTSLAM1", n_particles=1024,
                  estimator=est).run(seed=3, n_ticks=200)
@@ -259,10 +259,10 @@ def test_multi_tick_predict_dispatch(estimator, P, multi):
     as the JAX runner dispatches; otherwise the per-tick predict."""
     cfg, slam_map = _scene()
     if estimator == "eager":
-        est = tfs1.FastSlam1(cfg, slam_map.n_landmarks)
+        est = tfs1.FastSlam1(cfg, slam_map.n_landmarks, device="cpu")
     else:
         est = tfs1.FastSlam1Deferred(
-            cfg, slam_map.n_landmarks,
+            cfg, slam_map.n_landmarks, device="cpu",
             fused_predict=estimator == "deferred")
     calls = {"predict": 0, "predict_multi": 0}
     for name in calls:
@@ -284,14 +284,14 @@ def test_multi_tick_predict_dispatch(estimator, P, multi):
 
 def test_deferred_refuses_unaligned_particle_counts():
     cfg, slam_map = _scene()
-    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks)
+    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks, device="cpu")
     with pytest.raises(ValueError, match="multiple of 512"):
         est.init(768)
 
 
 def test_runner_refuses_an_estimator_on_another_device():
     cfg, slam_map = _scene()
-    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks)
+    est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks, device="cpu")
     with pytest.raises(ValueError, match="estimator is on"):
         Runner(cfg, slam_map, estimator=est, device="meta")
 
@@ -321,7 +321,7 @@ def test_deferred_state_numpy_round_trip_is_exact(pending):
                             ident=ident)
     arrays = {"ps": _as_numpy(jd.ps), "S": np.asarray(jd.S), "lo": lo,
               "nch": nch, "ident": ident}
-    td = deferred_state_from_numpy(arrays)
+    td = deferred_state_from_numpy(arrays, device="cpu")
     assert td.pending == pending
     back = deferred_state_to_numpy(td)
     np.testing.assert_array_equal(back["S"], S)
@@ -330,7 +330,7 @@ def test_deferred_state_numpy_round_trip_is_exact(pending):
         assert back["ps"][f].dtype == arrays["ps"][f].dtype, f
         np.testing.assert_array_equal(back["ps"][f], arrays["ps"][f],
                                       err_msg=f)
-    again = deferred_state_from_numpy(back)
+    again = deferred_state_from_numpy(back, device="cpu")
     assert again.pending == pending and torch.equal(again.S, td.S)
 
 
@@ -393,7 +393,7 @@ def _k5_edge_case(case, P=8192, seed=5):
         seen[1] = seen[0]
     ids = np.concatenate([seen, np.arange(live, live + n_new),
                           rng.choice(live, 1)]).astype(np.int32)
-    state = init_particles(1, L, n_map)._replace(
+    state = init_particles(1, L, n_map, device="cpu")._replace(
         n=torch.tensor(live, dtype=torch.int32),
         da_table=torch.tensor(table))
     zmask = torch.tensor(np.arange(K) < n_match + n_new)

@@ -37,10 +37,11 @@ def ring40():
                                        ("port", tconfig, tmaps))}
 
 
-def _rms_ate(runtime, cfg, slam_map, method="FASTSLAM1"):
+def _rms_ate(runtime, cfg, slam_map, method="FASTSLAM1", **runner_kw):
     ates = []
     for seed in SEEDS:
-        runner = runtime.Runner(cfg, slam_map, method, n_particles=32)
+        runner = runtime.Runner(cfg, slam_map, method, n_particles=32,
+                                **runner_kw)
         result = runner.run(seed=seed, n_ticks=400)
         ate = runtime.compute_metrics(result).ate_rmse
         assert np.isfinite(ate)
@@ -54,7 +55,7 @@ def test_fastslam1_ate_within_jax_bound(ring40):
 
     jax_ate, _ = _rms_ate(jrt, *ring40["jax"])
     cfg, slam_map = ring40["port"]
-    port_ate, result = _rms_ate(trt, cfg, slam_map)
+    port_ate, result = _rms_ate(trt, cfg, slam_map, device="cpu")
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
     assert int(result.final_state.n) > 0
@@ -69,7 +70,8 @@ def test_fastslam2_ate_within_jax_bound(ring40):
     cfg, slam_map = ring40["port"]
     assert cfg.SWITCH_HEADING_KNOWN    # the per-tick predict and heading
     jax_ate, _ = _rms_ate(jrt, *ring40["jax"], "FASTSLAM2")
-    port_ate, result = _rms_ate(trt, cfg, slam_map, "FASTSLAM2")
+    port_ate, result = _rms_ate(trt, cfg, slam_map, "FASTSLAM2",
+                                device="cpu")
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
     assert int(result.final_state.n) > 0
@@ -101,7 +103,8 @@ def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(
 
     cfg = tconfig.SlamConfig(SWITCH_HEADING_KNOWN=0)
     slam_map = tmaps.synthetic_map(35, 17, radius=100.0)
-    result = Runner(cfg, slam_map, "FASTSLAM2", n_particles=1024).run(
+    result = Runner(cfg, slam_map, "FASTSLAM2", n_particles=1024,
+                    device="cpu").run(
         seed=3, n_ticks=6 * cfg.steps_per_observe)
     assert calls == {"per_tick": 0, "multi": 6} and len(twin_calls) == 6
     assert result.host_syncs == 6

@@ -96,7 +96,7 @@ def _as_numpy(state):
 def test_state_numpy_round_trip_is_exact(scene):
     cfg, slam_map, pose, obs = scene
     want = _as_numpy(_jax_state(cfg, slam_map, pose, obs, P=48))
-    ts = state_from_numpy(want)
+    ts = state_from_numpy(want, device="cpu")
     assert ts.n_particles == 48 and ts.capacity == 40
     got = state_to_numpy(ts)
     for f in FIELDS:
@@ -109,7 +109,7 @@ def test_state_numpy_round_trip_is_exact(scene):
 def test_superstep_matches_jax(scene, P, gate, monkeypatch):
     cfg, slam_map, pose, obs = scene
     jstate = _jax_state(cfg, slam_map, pose, obs, P)
-    tstate = state_from_numpy(_as_numpy(jstate))
+    tstate = state_from_numpy(_as_numpy(jstate), device="cpu")
 
     rng = np.random.default_rng(P)
     V = (cfg.V + rng.normal(size=(8, P)) * 0.3).astype(np.float32)
@@ -146,7 +146,8 @@ def test_superstep_matches_jax(scene, P, gate, monkeypatch):
 
     # The port's gate decision, from its own pre-resample weights.
     targs = (torch.tensor(z), torch.tensor(ids), torch.tensor(zmask), R)
-    held = tfs1.fs1_update(state_from_numpy(_as_numpy(tstate)), *targs,
+    held = tfs1.fs1_update(state_from_numpy(_as_numpy(tstate),
+                                            device="cpu"), *targs,
                            n_min, lambda pos: U[pos], do_resample=False)
     assert bool(trs.effective_particles(held.logw) < n_min) == need
 
@@ -191,7 +192,7 @@ def test_fs1_update_dispatch_follows_particle_count(scene, P, want,
     record(tparticles, "bounds_gather_multi", "G2")
     cfg, slam_map, pose, obs = scene
     state = state_from_numpy(_as_numpy(_jax_state(cfg, slam_map, pose,
-                                                  obs, P)))
+                                                  obs, P)), device="cpu")
     R = np.diag(np.asarray(cfg.Re, np.float32))
     g = torch.Generator().manual_seed(0)
     tfs1.fs1_update(state, *(torch.tensor(np.asarray(a))

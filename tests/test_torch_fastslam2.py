@@ -202,15 +202,15 @@ def test_refine_pose_planes_matches_jax():
 # The predict: fs2_predict and K6b's twin
 # ---------------------------------------------------------------------------
 
-def _predict_fixture(P=512, seed=5):
+def _predict_fixture(P=512, seed=5, T=8):
     """The pose and covariance state of tests/test_deferred.py's K6b
-    test, and 8 ticks of controls."""
+    test, and T ticks of controls."""
     rng = np.random.default_rng(seed)
     xv = rng.normal(size=(3, P)).astype(np.float32)
     Pv = np.zeros((6, P), np.float32)
     Pv[0], Pv[3], Pv[5] = 0.02, 0.02, 0.01
-    ctl = np.column_stack([rng.uniform(1, 4, 8),
-                           rng.uniform(-0.3, 0.3, 8)]).astype(np.float32)
+    ctl = np.column_stack([rng.uniform(1, 4, T),
+                           rng.uniform(-0.3, 0.3, T)]).astype(np.float32)
     return xv, Pv, ctl
 
 
@@ -228,7 +228,7 @@ def _jax_predict_steps(xv, Pv, ctl):
 def test_fs2_predict_noise_off_matches_jax():
     xv, Pv, ctl = _predict_fixture()
     want_xv, want_Pv = _jax_predict_steps(xv, Pv, ctl)
-    state = init_particles(xv.shape[1], 4, 4)._replace(xv=_t(xv),
+    state = init_particles(xv.shape[1], 4, 4, device="cpu")._replace(xv=_t(xv),
                                                        Pv=_t(Pv))
     g = torch.Generator().manual_seed(0)
     for t in range(ctl.shape[0]):
@@ -239,10 +239,12 @@ def test_fs2_predict_noise_off_matches_jax():
     np.testing.assert_allclose(state.Pv.numpy(), want_Pv, **TOL_PV)
 
 
-def test_k6b_twin_noise_off_matches_jax():
-    """The twin against 8 JAX fs2_predict steps and against the TPU
-    kernel in interpret mode (its noise-off arm, which runs on the CPU)."""
-    xv, Pv, ctl = _predict_fixture()
+def _check_k6b_twin_noise_off_against_jax(T):
+    """The twin against T JAX fs2_predict steps and against the TPU
+    kernel in interpret mode (its noise-off arm, which runs on the CPU);
+    T = 8 is the superstep's tick count, 3 and 11 are no multiple of
+    the unrolling of the CUDA kernel's tick loop."""
+    xv, Pv, ctl = _predict_fixture(T=T)
     want_xv, want_Pv = _jax_predict_steps(xv, Pv, ctl)
     k_xv, k_Pv = jkernels.fs2_predict_multi_tpu(
         jnp.asarray(xv), jnp.asarray(Pv), jax.random.key(0),
@@ -257,6 +259,15 @@ def test_k6b_twin_noise_off_matches_jax():
         np.testing.assert_allclose(got_xv.numpy(), np.asarray(w_xv), **TOL)
         np.testing.assert_allclose(got_Pv.numpy(), np.asarray(w_Pv),
                                    **TOL_PV)
+
+
+def test_k6b_twin_noise_off_matches_jax():
+    _check_k6b_twin_noise_off_against_jax(8)
+
+
+@pytest.mark.parametrize("T", [3, 11])
+def test_k6b_twin_noise_off_matches_jax_at_other_tick_counts(T):
+    _check_k6b_twin_noise_off_against_jax(T)
 
 
 def test_k6b_twin_noise_on_is_normal_pair_draw_for_draw():
@@ -344,7 +355,7 @@ def test_k3_twin_matches_refine_proposal_and_tpu_kernel():
     want_tpu = jkernels.fs2_refine_tpu(state.xv, state.Pv, *gathered, z,
                                        matched, jnp.asarray(R),
                                        interpret=True)
-    ts = state_from_numpy(_as_numpy(state))
+    ts = state_from_numpy(_as_numpy(state), device="cpu")
     tg = trbpf.gather_landmarks(ts, _t(slot))
     tk.reset_launch_counts()
     got = tfs2._refine_proposal(ts, _t(z), _t(matched), tg, R)
@@ -364,7 +375,7 @@ def test_k3_twin_matches_refine_proposal_and_tpu_kernel():
 
 def test_k3_twin_passes_unmatched_slots_through():
     state, z, slot, _ = _refine_fixture()
-    ts = state_from_numpy(_as_numpy(state))
+    ts = state_from_numpy(_as_numpy(state), device="cpu")
     tg = trbpf.gather_landmarks(ts, _t(slot))
     none = torch.zeros(z.shape[0], dtype=torch.bool)
     xv_r, Pv_r = tkernels.fs2_refine_plain(ts.xv, ts.Pv, *tg, _t(z), none,
@@ -448,7 +459,8 @@ def test_fs2_update_matches_jax(scene, P, gate, monkeypatch):
     cfg, slam_map, pose, obs = scene
     jstate = _jax_state(cfg, slam_map, pose, obs, P)
     jstate, tstate = _predicted(cfg, jstate,
-                                state_from_numpy(_as_numpy(jstate)))
+                                state_from_numpy(_as_numpy(jstate),
+                                                 device="cpu"))
     assert float(np.abs(np.asarray(jstate.Pv)).max()) > 0
 
     n_min = float(P) if gate == "fires" else 0.0
@@ -474,7 +486,8 @@ def test_fs2_update_matches_jax(scene, P, gate, monkeypatch):
                         lambda logw: torch.tensor(csum))
 
     targs = (torch.tensor(z), torch.tensor(ids), torch.tensor(zmask), R)
-    held = tfs2.fs2_update(state_from_numpy(state_to_numpy(tstate)), *targs,
+    held = tfs2.fs2_update(state_from_numpy(state_to_numpy(tstate),
+                                            device="cpu"), *targs,
                            n_min, eps, lambda pos: U[pos],
                            do_resample=False)
     assert bool(trs.effective_particles(held.logw) < n_min) == need
@@ -505,7 +518,8 @@ def test_fs2_update_without_observations_keeps_the_state(scene):
     as it was (the gate holds at n_min 0)."""
     cfg, slam_map, pose, obs = scene
     jstate = _jax_state(cfg, slam_map, pose, obs, 64)
-    _, tstate = _predicted(cfg, jstate, state_from_numpy(_as_numpy(jstate)))
+    _, tstate = _predicted(cfg, jstate, state_from_numpy(_as_numpy(jstate),
+                                                         device="cpu"))
     before = state_to_numpy(tstate)
     K = obs.z.shape[0]
     g = torch.Generator().manual_seed(1)
@@ -567,7 +581,7 @@ def test_fs2_update_dispatch_follows_particle_count(scene, P, want,
     record(tparticles, "bounds_gather_multi", "G2")
     cfg, slam_map, pose, obs = scene
     state = state_from_numpy(_as_numpy(_jax_state(cfg, slam_map, pose,
-                                                  obs, P)))
+                                                  obs, P)), device="cpu")
     g = torch.Generator().manual_seed(0)
     tfs2.fs2_update(state, *(torch.tensor(np.asarray(a))
                              for a in (obs.z, obs.ids, obs.mask)), R,
@@ -582,17 +596,19 @@ def test_fs2_update_dispatch_follows_particle_count(scene, P, want,
 
 @pytest.mark.parametrize("heading_known", [1, 0])
 def test_predict_multi_only_with_the_heading_unknown(heading_known):
-    est = tfs2.FastSlam2(SlamConfig(SWITCH_HEADING_KNOWN=heading_known), 10)
+    est = tfs2.FastSlam2(SlamConfig(SWITCH_HEADING_KNOWN=heading_known), 10,
+                         device="cpu")
     assert hasattr(est, "predict_multi") == (not heading_known)
 
 
 def test_fs2_state_with_covariance_crosses_packages(scene):
     cfg, slam_map, pose, obs = scene
     jstate = _jax_state(cfg, slam_map, pose, obs, 48)
-    jstate, _ = _predicted(cfg, jstate, state_from_numpy(_as_numpy(jstate)))
+    jstate, _ = _predicted(cfg, jstate, state_from_numpy(_as_numpy(jstate),
+                                                         device="cpu"))
     want = _as_numpy(jstate)
     assert np.abs(want["Pv"]).max() > 0
-    got = state_to_numpy(state_from_numpy(want))
+    got = state_to_numpy(state_from_numpy(want, device="cpu"))
     for f in FIELDS:
         assert got[f].dtype == want[f].dtype, f
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
@@ -600,7 +616,8 @@ def test_fs2_state_with_covariance_crosses_packages(scene):
 
 def test_fs2_predict_multi_runs_k6b_twin_in_place():
     est = tfs2.FastSlam2(SlamConfig(SWITCH_HEADING_KNOWN=0,
-                                    SWITCH_PREDICT_NOISE=1), 10)
+                                    SWITCH_PREDICT_NOISE=1), 10,
+                         device="cpu")
     state = est.init(1024)
     xv, Pv = state.xv, state.Pv
     ctl = torch.tensor([[3.0, 0.1]] * 8)
@@ -653,6 +670,30 @@ def test_k6b_kernel_matches_twin_on_card(cuda, add_noise):
     dth = wrap_angle(got[0][2] - want[0][2])
     torch.testing.assert_close(dth, torch.zeros_like(dth), **TOL)
     torch.testing.assert_close(got[1], want[1], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add_noise", [True, False], ids=["noise", "nominal"])
+@pytest.mark.parametrize("T,P", [(8, 2 ** 20), (8, 2 ** 20 + 37),
+                                 (5, 2 ** 20 + 37), (11, 1000),
+                                 (300, 4133)])
+def test_k6b_kernel_is_bit_equal_to_twin_on_card(cuda, T, P, add_noise):
+    """At T = 8, at a T that is no multiple of the tick loop's unrolling
+    and at one that takes two launches, at 2^20 particles and a ragged
+    count: the kernel keeps the twin's
+    operation order and its sincosf and fast wrap return the bits of what
+    they replace, so nothing separates the two."""
+    xv, Pv, ctl = _predict_fixture(P=P, seed=10, T=T)
+    xv[2] *= 2.0
+    seed = torch.tensor([-123, 456], dtype=torch.int32, device=cuda)
+    kw = dict(wheelbase=WHEELBASE, dt=DT, add_noise=add_noise)
+    got = tk.fs2_predict_multi(_t(xv, cuda), _t(Pv, cuda), seed,
+                               _t(ctl, cuda), Q, **kw)
+    want = tp.fs2_predict_multi_plain(_t(xv, cuda), _t(Pv, cuda), seed,
+                                      _t(ctl, cuda), Q, **kw)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 @pytest.mark.cuda

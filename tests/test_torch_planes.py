@@ -52,6 +52,45 @@ def test_wrap_angle_matches_jax():
     assert w.min() >= -np.pi - 1e-6 and w.max() < np.pi + 1e-6
 
 
+def _near(values, width=2000):
+    """Every float32 within ``width`` ulps of each value."""
+    out = []
+    for v in values:
+        bits = int(np.array([v], np.float32).view(np.uint32)[0])
+        out.append(np.arange(bits - width, bits + width + 1)
+                   .astype(np.uint32).view(np.float32))
+    return np.concatenate(out)
+
+
+# The fast wrap's ranges meet where ang + pi is 0, +-2 pi and 4 pi.
+WRAP_SWEEPS = {
+    "two periods": lambda rng: rng.uniform(-4 * np.pi, 4 * np.pi, 200_000),
+    "breakpoints": lambda rng: _near([k * np.pi for k in range(-6, 7)]),
+    "zeros and tiny": lambda rng: np.concatenate([
+        _near([0.0], 50), -_near([0.0], 50),
+        [1e-45, -1e-45, 1e-30, -1e-30, 1e-7, -1e-7]]),
+    "large": lambda rng: np.concatenate([
+        rng.normal(size=50_000) * 1e3, rng.normal(size=50_000) * 1e8,
+        [1e30, -1e30, 3.4e38, -3.4e38]]),
+    "not finite": lambda rng: np.array([np.inf, -np.inf, np.nan]),
+}
+
+
+@pytest.mark.parametrize("sweep", WRAP_SWEEPS)
+def test_wrap_angle_fast_is_wrap_angle_bit_for_bit(sweep):
+    """The twin of csrc/planes.cuh:wrap_angle_fast against wrap_angle:
+    the same bits (NaN for NaN), the sign of a zero included."""
+    x = np.asarray(WRAP_SWEEPS[sweep](np.random.default_rng(5)), np.float32)
+    t = torch.from_numpy(x)
+    want, got = tgeo.wrap_angle(t), tgeo.wrap_angle_fast(t)
+    assert got.dtype == want.dtype == torch.float32
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    assert bool(same.all()), x[~same.numpy()][:5]
+    if sweep != "not finite":
+        _close(got, jgeo.wrap_angle(x))
+
+
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 50.0])
 def test_atan2_poly_matches_jax(scale):
     rng = np.random.default_rng(2)

@@ -5,9 +5,16 @@
   ``fs1_predict_multi_tpu`` in interpret mode (the TPU kernel's PRNG arm
   has no CPU lowering, as tests/test_deferred.py notes), at rtol/atol
   1e-5: float32 rounding through 8 bicycle steps.
+  The same at T = 3 and T = 11, tick counts that are no multiple of
+  the unrolling of the CUDA kernel's tick loop.
 - The twin with the noise on: the moments of (V, G) against the
   nominal controls and Q, within 4 standard errors.
-- On a card, the CUDA kernel against the twin, draw for draw.
+- On a card, the CUDA kernel against the twin, draw for draw: bit for
+  bit at T = 8, at a T that is no multiple of the tick loop's
+  unrolling and at a T that takes two launches, at 2^20 particles and
+  at a ragged count, the noise on and off; and the sweep
+  that holds the kernel's sincosf and fast wrap to sinf, cosf and the
+  fmodf wrap on every float32 bit pattern.
 """
 
 import math
@@ -75,8 +82,8 @@ def test_philox_counters_map_to_distinct_words():
     assert torch.unique(torch.cat(words)).numel() == P * T
 
 
-def test_k6_twin_noise_off_matches_jax():
-    P, T = 512, 8
+def _check_k6_twin_noise_off_against_jax(T):
+    P = 512
     rng = np.random.default_rng(3)
     xv = rng.normal(size=(3, P)).astype(np.float32)
     ctl = _controls(T)
@@ -90,6 +97,17 @@ def test_k6_twin_noise_off_matches_jax():
                                      add_noise=False)
     assert out is got                       # in place, as the kernel
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_k6_twin_noise_off_matches_jax():
+    _check_k6_twin_noise_off_against_jax(8)
+
+
+@pytest.mark.parametrize("T", [3, 11])
+def test_k6_twin_noise_off_matches_jax_at_other_tick_counts(T):
+    """T = 8 is the superstep's tick count; the wrapper and the CUDA
+    kernel's tick loop take any T."""
+    _check_k6_twin_noise_off_against_jax(T)
 
 
 def test_k6_twin_noise_moments():
@@ -175,3 +193,44 @@ def test_k6_kernel_matches_twin_on_card(cuda, add_noise):
     torch.testing.assert_close(got[:2], want[:2], **TOL)
     dth = wrap_angle(got[2] - want[2])
     torch.testing.assert_close(dth, torch.zeros_like(dth), **TOL)
+
+
+# T = 8 is the superstep's; 5 and 11 are no multiple of the tick
+# loop's unrolling (4), 300 takes two launches (256 ticks each at most);
+# 2^20 + 37 leaves the last block ragged.
+CARD_SHAPES = [(8, 2 ** 20), (8, 2 ** 20 + 37), (5, 2 ** 20 + 37),
+               (11, 1000), (300, 4133)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add_noise", [True, False], ids=["noise", "nominal"])
+@pytest.mark.parametrize("T,P", CARD_SHAPES)
+def test_k6_kernel_is_bit_equal_to_twin_on_card(cuda, T, P, add_noise):
+    """The kernel keeps the twin's operation order, and its sincosf and
+    fast wrap return the bits of what they replace (the sweep below), so
+    nothing separates the two."""
+    xv = torch.tensor(np.random.default_rng(6).normal(size=(3, P))
+                      .astype(np.float32) * [[1.0], [1.0], [2.0]],
+                      dtype=torch.float32, device=cuda)
+    ctl = torch.tensor(_controls(T), device=cuda)
+    seed = torch.tensor([-123, 456], dtype=torch.int32, device=cuda)
+    kw = dict(wheelbase=WHEELBASE, dt=DT, add_noise=add_noise)
+    got = tk.fs1_predict_multi(xv.clone(), seed, ctl, Q_DIAG, **kw)
+    want = tp.fs1_predict_multi_plain(xv.clone(), seed, ctl, Q_DIAG, **kw)
+    assert torch.isfinite(got).all() and not torch.equal(got, xv)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_fast_math_sweep_finds_no_mismatch_on_card(cuda):
+    """sincosf against sinf and cosf, wrap_angle_fast against wrap_angle,
+    on all 2^32 float32 bit patterns."""
+    sweep = tp.fast_math_sweep(cuda)
+    assert sweep == dict(sin_mismatches=0, cos_mismatches=0,
+                         wrap_mismatches=0, first_trig=None,
+                         first_wrap=None), sweep
+
+
+def test_fast_math_sweep_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        tp.fast_math_sweep("cpu")

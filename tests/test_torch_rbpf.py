@@ -35,7 +35,7 @@ def _state(P=40, L=8, n_map=12, seed=0):
 
 def test_init_particles_matches_jax():
     want = jparticles.init_particles(37, 16, 21)
-    got = tparticles.init_particles(37, 16, 21)
+    got = tparticles.init_particles(37, 16, 21, device="cpu")
     for f in tparticles.FIELDS:
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
         assert g.dtype == w.dtype, f
@@ -45,7 +45,7 @@ def test_init_particles_matches_jax():
 @pytest.mark.parametrize("mode", ["mean", "median", "weighted"])
 def test_estimate_position_matches_jax(mode):
     arrays, jstate = _state()
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     np.testing.assert_allclose(
         tparticles.estimate_position(tstate, mode).numpy(),
         np.asarray(jparticles.estimate_position(jstate, mode)), **TOL)
@@ -54,14 +54,14 @@ def test_estimate_position_matches_jax(mode):
 def test_estimate_position_heading_tie_takes_first_particle():
     arrays, _ = _state()
     arrays["logw"][:] = -np.log(40)
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     assert float(tparticles.estimate_position(tstate)[2]) == \
         arrays["xv"][2, 0]
 
 
 def test_pack_unpack_round_trip():
     arrays, jstate = _state()
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     flat = tparticles.pack_particle_planes(tstate)
     np.testing.assert_array_equal(
         flat.numpy(), np.asarray(jparticles.pack_particle_planes(jstate)))
@@ -72,7 +72,7 @@ def test_pack_unpack_round_trip():
 
 def test_gathers_match_jax():
     arrays, jstate = _state()
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     idx = np.sort(np.random.default_rng(1).integers(0, 40, 40)).astype(
         np.int32)
     want = jparticles.gather_particles(jstate, jnp.asarray(idx))
@@ -88,7 +88,7 @@ def test_gathers_match_jax():
 
 def test_observe_heading_particles_matches_jax():
     arrays, jstate = _state(seed=2)
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     want = jrbpf.observe_heading_particles(jstate, jnp.float32(0.3), 0.02)
     got = trbpf.observe_heading_particles(tstate, torch.tensor(0.3), 0.02)
     np.testing.assert_allclose(got.xv.numpy(), np.asarray(want.xv), **TOL)
@@ -96,7 +96,7 @@ def test_observe_heading_particles_matches_jax():
     # At Pv == 0 the gain is zero: x, y and Pv stay as they are, and the
     # heading only goes through one more wrap (a rounding, no more).
     arrays["Pv"][:] = 0.0
-    zero = tparticles.state_from_numpy(arrays)
+    zero = tparticles.state_from_numpy(arrays, device="cpu")
     got0 = trbpf.observe_heading_particles(zero, torch.tensor(0.3), 0.02)
     assert torch.equal(got0.xv[:2], zero.xv[:2])
     assert torch.equal(got0.Pv, zero.Pv)
@@ -122,7 +122,7 @@ def test_sample_controls_noise_off_and_moments():
 
 def test_associate_and_new_slots_match_jax():
     arrays, jstate = _state()
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     ids = np.array([4, 5, 9, 11, 2, 7], np.int32)
     zmask = np.array([True, True, True, True, False, True])
     ja, jn = jrbpf.associate_known(jstate, jnp.asarray(ids),
@@ -166,7 +166,7 @@ def test_set_table_drops_masked_and_out_of_range_ids():
 
 def test_add_new_features_matches_jax():
     arrays, jstate = _state(P=40, L=8)
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     R = np.diag([0.01, 0.0003]).astype(np.float32)
     z = np.array([[5.0, 0.3], [4.0, -0.2], [7.0, 0.9], [3.0, 0.1]],
                  np.float32)
@@ -186,7 +186,7 @@ def test_add_new_features_matches_jax():
 
 def test_observe_planes_and_matched_update_match_jax():
     arrays, jstate = _state(seed=4)
-    tstate = tparticles.state_from_numpy(arrays)
+    tstate = tparticles.state_from_numpy(arrays, device="cpu")
     R = np.diag([0.01, 0.0003]).astype(np.float32)
     z = np.array([[5.0, 0.3], [4.0, -0.2], [6.0, 1.0]], np.float32)
     slot = np.array([2, 0, 3], np.int32)

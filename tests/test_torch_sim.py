@@ -61,7 +61,8 @@ def test_control_and_observe_steps_match_jax(ring40, noise):
     if noise == "off":
         kw = dict(SWITCH_CONTROL_NOISE=0, SWITCH_SENSOR_NOISE=0)
         cfg, tcfg = cfg.replace(**kw), tcfg.replace(**kw)
-    js, ts = jsim.Simulator(cfg, jmap), tsim.Simulator(tcfg, tmap)
+    js = jsim.Simulator(cfg, jmap)
+    ts = tsim.Simulator(tcfg, tmap, device="cpu")
     assert ts.max_obs == js.max_obs
     jstate, tstate = js.init(seed=3), ts.init(seed=3)
     jcontrol, jobserve = jax.jit(js.control_step), jax.jit(js.observe_step)
@@ -90,7 +91,7 @@ def test_rollout_controls_matches_jax(ring40):
     kw = dict(SWITCH_CONTROL_NOISE=0, NUMBER_LOOPS=1)
     (cfg, jmap), (tcfg, tmap) = ring40
     js = jsim.Simulator(cfg.replace(**kw), jmap)
-    ts = tsim.Simulator(tcfg.replace(**kw), tmap)
+    ts = tsim.Simulator(tcfg.replace(**kw), tmap, device="cpu")
     n = 600
     _, jposes, jdones = jax.jit(js.rollout_controls,
                                 static_argnums=1)(js.init(seed=1), n)
@@ -110,7 +111,7 @@ def test_default_max_obs_matches_jax(ring40):
 
 def test_heading_measurement_is_truth_plus_scaled_uniform(ring40):
     _, (cfg, slam_map) = ring40
-    ts = tsim.Simulator(cfg, slam_map)
+    ts = tsim.Simulator(cfg, slam_map, device="cpu")
     state, _ = ts.control_step(ts.init(seed=2))
     _, phi = ts.heading_measurement(state, u=torch.tensor(0.25))
     np.testing.assert_allclose(
