@@ -10,7 +10,12 @@ Phases, in order; any failure raises and exits non-zero:
    (nvidia-smi) and turns TF32 off.
 2. Build: compiles the CUDA kernels from slam_tpu_torch/csrc.
 3. Kernels against their plain PyTorch twins on the card, at the shapes
-   the main paths give them: K2 (K=15, P=100), K4 (K=15, L=200,
+   the main paths give them: K2 (K=15, L=200, P=100, by slot; and on
+   edge cases: P=2^17 + 37, one landmark observed twice, new slots past
+   the capacity, no matched observation, K=160, whose threads take
+   several k each), bit-equal to K4 on the same inputs wherever the
+   matched slots are distinct, and timed beside K4 at P=100 and at the
+   ragged P; K4 (K=15, L=200,
    P=2^17; and slice (f)'s K=9, L=40, P=2^20), G1 (P=100) and G2
    (P=2^17; and P=2^20 at L=40), over the 10 + 5L rows of the resample
    gather; K5 at config #5's shapes (K=96, L=192, P=2^20)
@@ -47,8 +52,9 @@ Phases, in order; any failure raises and exits non-zero:
    that nvidia-smi reports while they run (issue_bound_ms, issue_share).
 4. FastSLAM 1 end to end through Runner + compute_metrics; the launch
    counters are reset before each run and read after it:
-   (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2 and
-       G1, and not K4 or G2;
+   (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2
+       once per superstep and G1, and not K4 or G2; one host sync per
+       superstep (the resample gate);
    (b) the same at P = 131072: K4 and G2, and not K2 or G1;
    (c) config #5's filter, FastSlam1Deferred at P = 2^20 with capacity
        192, 256 ticks, seeds 3, 4, 5: K6 once per superstep, K5 and G2
@@ -57,8 +63,8 @@ Phases, in order; any failure raises and exits non-zero:
        4, 5: K5 and K6, and not K2 or G1;
    then FastSLAM 2 through Runner with -method FASTSLAM2:
    (e) dense200 (heading known), P = 100, 2000 ticks, seeds 3, 4, 5:
-       K3, K2 and G1, and not K4, K6b, G2, K5 or K6; two host syncs per
-       superstep;
+       K3, K2 once per superstep and G1, and not K4, K6b, G2, K5 or K6;
+       one host sync per superstep;
    (f) the JAX package's fastslam2_1m world (heading unknown,
        synthetic_map(35, 17, radius=100)), P = 2^20, 1024 ticks, seeds
        3, 4, 5: K6b once per superstep, K3, K4 and G2, and not K2, G1,
@@ -192,6 +198,9 @@ OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
 # slots.
 SMS, SCHEDULERS_PER_SM, LANES = 132, 4, 32
 P_RAGGED = 2 ** 20 + 37
+# K2's edge cases: a ragged large P, and a K whose K x 8 threads (K2's
+# block at P = 100) pass 1024.
+P_K2_RAGGED, K_STRIDED = 2 ** 17 + 37, 160
 # A T that is no multiple of the tick loop's unrolling, and a T and P
 # whose ticks take two launches (csrc/predict.cu:kMaxTicks is 256).
 T_ODD, T_LONG, P_LONG = 5, 300, 4133
@@ -301,31 +310,7 @@ def check_kernels(dev) -> dict:
     def t(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    # K2: gathered planes of K observations at P particles.
-    P, K = P_SMALL, K_OBS
-    xv = t(rng.normal(size=(3, P)) * [[0.3], [0.3], [0.05]])
-    rngk = rng.uniform(3.0, 25.0, K)
-    brg = rng.uniform(-1.4, 1.4, K)
-    lmx = t(rngk[:, None] * np.cos(brg)[:, None]
-            + rng.normal(size=(K, P)) * 0.3)
-    lmy = t(rngk[:, None] * np.sin(brg)[:, None]
-            + rng.normal(size=(K, P)) * 0.3)
-    A = rng.normal(size=(K, P)) * 0.2
-    p00, p01, p11 = t(A * A + 0.02), t(0.3 * A * A), t(A * A + 0.03)
-    z = t(np.column_stack([rngk + rng.normal(size=K) * 0.1,
-                           brg + rng.normal(size=K) * 0.017]))
-    matched = t(np.arange(K) % 5 != 4, torch.bool)
-    args = (xv, lmx, lmy, p00, p01, p11, z, matched, R)
-    got, want = kk.observe(*args), kk.observe_plain(*args)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, **TOL)
-    results["K2"] = dict(
-        max_abs_err=max_abs_err(got, want), shape=f"K={K} P={P}",
-        bytes=4 * (3 * P + 5 * K * P + 2 * K + P + 5 * K * P) + K,
-        ops=K * P * OPS_MATCH,
-        **measure(lambda: kk.observe(*args),
-                  lambda: kk.observe_plain(*args)))
+    results["K2"] = check_k2(dev, rng, g)
 
     # K4 and G2 at the shapes of the FS1 slice (b) and of the FS2 slice
     # (f); the first of each is the one timed in the kernel table.
@@ -402,20 +387,23 @@ def check_gathers(dev, g, fs2_L) -> dict:
 
 
 def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
-                  twice=False):
-    """A particle state and an observation batch for K4 and K5 at K
+                  twice=False, past_capacity=False):
+    """A particle state and an observation batch for K2, K4 and K5 at K
     observations, L slots, P particles: ``live`` landmarks mapped,
     ``n_match`` of them observed, ``n_new`` new ones, the rest masked
     observations of live landmarks. ``twice``: the first landmark is
-    observed twice, so two k match one slot. Returns (state, (z, slot,
-    matched, slot_new, ok))."""
+    observed twice, so two k match one slot. ``past_capacity``: the new
+    observations whose slots lie past the L slots stay flagged in ``ok``,
+    for the kernel to drop. Returns (state, (z, slot, matched, slot_new,
+    ok))."""
     import numpy as np
     import torch
 
     from slam_tpu_torch.models.particles import init_particles
     from slam_tpu_torch.models.rbpf import associate_known, new_slots
 
-    check(n_match + n_new <= K and live + n_new <= min(n_map, L),
+    check(n_match + n_new <= K and live <= L and live + n_new <= n_map
+          and (past_capacity or live + n_new <= L),
           "update input: inconsistent sizes")
     f32 = dict(dtype=torch.float32, device=dev)
 
@@ -452,10 +440,95 @@ def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
     matched = assoc >= 0
     slot = torch.where(matched, assoc, 0).to(torch.int32)
     slot_new, ok = new_slots(state, is_new)
+    if past_capacity:
+        ok = is_new
     check(int(matched.sum()) == n_match and int(ok.sum()) == n_new,
           f"update input: expected {n_match} matched and {n_new} new "
           "observations")
     return state, (z, slot, matched, slot_new, ok)
+
+
+def check_k2(dev, rng, g) -> dict:
+    """K2 on by-slot inputs, as K4 takes them, at the main path's shape
+    (K = 15, L = 200, P = 100: 120 live landmarks, 10 matched, 4 new)
+    and on the edge cases: a ragged large P, one landmark observed
+    twice, new slots past the capacity, no matched observation, and
+    K = 160, whose K x 8 threads pass 1024 (each thread then takes every
+    128th k). Within TOL of its twin on every case, and bit-equal to K4
+    on every case whose matched slots are distinct. Times K2 and, as the
+    yardstick of its thread map, K4 on the same inputs at P = 100 and at
+    the ragged P."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import kernels as kk
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    main = dict(n_map=CAPACITY, live=120, n_match=10, n_new=4)
+    # (name, P, K, inputs, bit-equal to K4)
+    cases = (("main", P_SMALL, K_OBS, main, True),
+             ("ragged large P", P_K2_RAGGED, K_OBS, main, True),
+             ("one landmark observed twice", P_SMALL, K_OBS,
+              dict(main, twice=True), False),
+             ("new slots past the capacity", P_SMALL, K_OBS,
+              dict(n_map=CAPACITY + 20, live=CAPACITY - 2, n_match=10,
+                   n_new=4, past_capacity=True), True),
+             ("no matched observation", P_SMALL, K_OBS,
+              dict(main, n_match=0), True),
+             ("K x 8 threads past 1024", P_SMALL, K_STRIDED,
+              dict(n_map=400, live=150, n_match=100, n_new=20), True))
+    err, out = 0.0, {}
+    for name, P, K, kw, k4_equal in cases:
+        state, batch = update_inputs(dev, rng, g, P, CAPACITY, K, **kw)
+
+        def fresh():
+            return (state.xv, state.logw.clone(), state.lm.clone(),
+                    state.lm_P.clone(), *batch, R)
+        a_k2, a_twin, a_k4 = fresh(), fresh(), fresh()
+        kk.observe(*a_k2)
+        kk.observe_plain(*a_twin)
+        kk.fused_update(*a_k4)
+        torch.cuda.synchronize()
+        got = a_k2[1:4]
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"K2 {name}: non-finite output")
+        check(kw["n_match"] == 0 or not torch.equal(got[0], state.logw),
+              f"K2 {name}: the weights did not move")
+        for a, b in zip(got, a_twin[1:4]):
+            torch.testing.assert_close(a, b, **TOL)
+        if k4_equal:
+            check(all(torch.equal(a, b) for a, b in zip(got, a_k4[1:4])),
+                  f"K2 {name}: not bit-equal to K4 (max abs err "
+                  f"{max_abs_err(got, a_k4[1:4]):.3g})")
+        err = max(err, max_abs_err(got, a_twin[1:4]))
+        print(f"kernel K2 {name} (K={K} P={P}): within TOL of its twin"
+              f"{', bit-equal to K4' if k4_equal else ''}", flush=True)
+        if name == "main":
+            b_k2, b_twin, b_k4 = fresh(), fresh(), fresh()
+            out.update(measure(lambda: kk.observe(*b_k2),
+                               lambda: kk.observe_plain(*b_twin)))
+            # Reads the pose, the weight and the matched slots; writes
+            # the weight and the touched slots.
+            n_match, n_new = kw["n_match"], kw["n_new"]
+            out.update(
+                shape=f"K={K} L={CAPACITY} P={P}",
+                bytes=4 * P * (3 + 2 + 10 * n_match + 5 * n_new) + 18 * K,
+                ops=P * (n_match * OPS_MATCH + n_new * OPS_INIT),
+                k4_ms=cuda_ms(lambda: kk.fused_update(*b_k4)),
+                k4_device_ms=device_ms(lambda: kk.fused_update(*b_k4)))
+        elif name == "ragged large P":
+            b_k2, b_k4 = fresh(), fresh()
+            out.update(
+                ragged_P=P, ragged_ms=cuda_ms(lambda: kk.observe(*b_k2)),
+                ragged_device_ms=device_ms(lambda: kk.observe(*b_k2)),
+                ragged_k4_ms=cuda_ms(lambda: kk.fused_update(*b_k4)),
+                ragged_k4_device_ms=device_ms(
+                    lambda: kk.fused_update(*b_k4)))
+        del state, batch, a_k2, a_twin, a_k4
+    print(f"kernel K2 against K4 on the same inputs: P={P_SMALL} "
+          f"{out['device_ms']} against {out['k4_device_ms']} ms (device); "
+          f"P={P_K2_RAGGED} {out['ragged_device_ms']} against "
+          f"{out['ragged_k4_device_ms']} ms (device)", flush=True)
+    return dict(out, max_abs_err=err)
 
 
 def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
@@ -1179,7 +1252,11 @@ def main() -> int:
 
     small = run_slice(dev, "eager-small", dense200(), "eager", P_SMALL,
                       TICKS, JAX_ANCHOR_ATE_M, on=("K2", "G1"),
-                      off=("K4", "K5", "K6", "G2", "K3", "K6b", "K1"))
+                      off=("K4", "K5", "K6", "G2", "K3", "K6b", "K1"),
+                      per_superstep=("K2",))
+    check(all(s == 1 for s in small["host_syncs_per_superstep"]),
+          "eager-small: host syncs per superstep "
+          f"{small['host_syncs_per_superstep']}")
     large = run_slice(dev, "eager-large", dense200(), "eager", P_LARGE,
                       TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
                       off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"))
@@ -1194,8 +1271,9 @@ def main() -> int:
                          off=("K2", "G1", "K3", "K6b", "K1"))
     fs2_small = run_slice(dev, "fs2-small", dense200(), "fs2", P_SMALL,
                           TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
-                          off=("K4", "K6b", "G2", "K5", "K6", "K1"))
-    check(all(s == 2 for s in fs2_small["host_syncs_per_superstep"]),
+                          off=("K4", "K6b", "G2", "K5", "K6", "K1"),
+                          per_superstep=("K2",))
+    check(all(s == 1 for s in fs2_small["host_syncs_per_superstep"]),
           "fs2-small: host syncs per superstep "
           f"{fs2_small['host_syncs_per_superstep']}")
     from slam_tpu_torch.sim.simulator import Simulator
@@ -1237,6 +1315,10 @@ def main() -> int:
                        for sl, s in slices.items()
                        if name in s["launches_per_superstep"]},
                    max_abs_err=errs[name], **{f: st[f] for f in fields})
+        if name == "K2":
+            row.update({f: st[f] for f in (
+                "k4_ms", "k4_device_ms", "ragged_P", "ragged_ms",
+                "ragged_device_ms", "ragged_k4_ms", "ragged_k4_device_ms")})
         if name == "K5":
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",

@@ -54,9 +54,10 @@ def main(argv: list[str] | None = None) -> int:
         print("error: no map file (-m)", file=sys.stderr)
         print(USAGE)
         return 2
-    if flags.pop("mode", "waypoints") != "waypoints":
-        print("error: only -mode waypoints is supported", file=sys.stderr)
-        return 2
+    mode = flags.pop("mode", "waypoints")
+    if mode != "waypoints":
+        print(f"warning: mode {mode!r} not supported; using waypoints",
+              file=sys.stderr)
     sim_name = flags.pop("n", "simulation")
     method = flags.pop("method", "FASTSLAM1")
     n_particles = flags.pop("particles", None)

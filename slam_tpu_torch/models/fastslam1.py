@@ -9,10 +9,11 @@ Neff-gated stratified resample.
 
 The eager update dispatches as the JAX package does on a TPU:
 
-- P % 128 == 0: K4, one in-place pass over the landmark state; the id
-  table and the live count stay out here.
-- otherwise: gather the matched slots, K2 on the gathered planes,
-  scatter back, then ``add_new_features``.
+- the weights, the matched landmarks' EKF updates and the new features
+  in one in-place kernel launch: K4 (one thread per particle) when
+  P % 128 == 0, otherwise K2 (the same function at any P, one thread per
+  (observation, particle) pair); the id table and the live count stay
+  out here.
 - resample: G2 from the offspring bounds when P % 512 == 0, else G1.
 
 The deferred path (P % 512 == 0) leaves the resample's landmark gather
@@ -62,19 +63,17 @@ def fs1_predict(state: ParticleState, generator: torch.Generator, vn, gn,
                                                   wheelbase, dt))
 
 
-def fs1_observe(state: ParticleState, z, slot, matched, R, gathered=None
+def fs1_observe(state: ParticleState, z, ids, slot, matched, is_new, R
                 ) -> ParticleState:
-    """Gather the matched landmark planes (unless ``gathered`` holds
-    them), run K2 on them, scatter the updated planes back (in place)
-    and apply the weight delta."""
-    if gathered is None:
-        gathered = rbpf.gather_landmarks(state, slot)
-    dlogw, nx, ny, np00, np01, np11 = observe(state.xv, *gathered, z,
-                                              matched, R)
-    rbpf.scatter_slots(state.lm, slot, torch.stack([nx, ny]), matched)
-    rbpf.scatter_slots(state.lm_P, slot, torch.stack([np00, np01, np11]),
-                       matched)
-    return state._replace(logw=state.logw + dlogw)
+    """Weight, per-landmark EKF update and new features, in place on
+    logw, lm and lm_P: K4 when P % 128 == 0, else K2; then the id table
+    (in place) and the live count."""
+    update = fused_update if state.n_particles % FUSED_ALIGN == 0 else observe
+    slot_new, ok = rbpf.new_slots(state, is_new)
+    update(state.xv, state.logw, state.lm, state.lm_P, z, slot, matched,
+           slot_new, ok, R)
+    rbpf.set_table(state.da_table, ids, slot_new, ok)
+    return state._replace(n=state.n + ok.sum(dtype=torch.int32))
 
 
 def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
@@ -92,21 +91,11 @@ def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
 
 def update_at_pose(state: ParticleState, z, ids, slot, matched, is_new, R,
                    n_min: float, uniform_at: rs.UniformAt, *,
-                   do_resample: bool = True, gathered=None
-                   ) -> ParticleState:
+                   do_resample: bool = True) -> ParticleState:
     """The eager update at the state's poses, after the association:
-    K4 in place when P % 128 == 0, else K2 on the matched planes (the
-    ``gathered`` ones when given) and ``add_new_features``; then the
-    Neff-gated resample. Shared by FastSLAM 1 and 2."""
-    if state.n_particles % FUSED_ALIGN == 0:
-        slot_new, ok = rbpf.new_slots(state, is_new)
-        fused_update(state.xv, state.logw, state.lm, state.lm_P, z, slot,
-                     matched, slot_new, ok, R)
-        rbpf.set_table(state.da_table, ids, slot_new, ok)
-        state = state._replace(n=state.n + ok.sum(dtype=torch.int32))
-    else:
-        state = fs1_observe(state, z, slot, matched, R, gathered)
-        state = rbpf.add_new_features(state, z, ids, is_new, R)
+    ``fs1_observe``, then the Neff-gated resample. Shared by FastSLAM 1
+    and 2."""
+    state = fs1_observe(state, z, ids, slot, matched, is_new, R)
     return rbpf.resample(state, n_min, do_resample, uniform_at)
 
 

@@ -13,16 +13,15 @@ Per observe tick (``fs2_update``), as the JAX package runs it on a TPU:
   in covariance form (``ops.planes.refine_pose_planes``);
 - the proposal sample xvs ~ N(xv_r, Pv_r), the importance weight
   prior / proposal, and Pv zeroed;
-- the likelihood and the feature updates at the sampled pose: K4 in
-  place when P % 128 == 0, else K2 on the planes gathered before the
-  refinement (the landmarks have not moved since), then
-  ``add_new_features``;
+- the likelihood, the feature updates and the new features at the
+  sampled pose, in place: K4 when P % 128 == 0, else K2, both reading
+  the landmark planes by slot (``fastslam1.fs1_observe``);
 - the Neff-gated resample (G2 when P % 512 == 0, else G1).
 
 With no observation at all the sample, the weight term and the Pv reset
 are switched off by ``torch.where`` on the device, not by a host branch:
-FastSLAM 2 adds no host sync to FastSLAM 1's (2 per superstep on the K2
-path, 1 on the K4 path).
+FastSLAM 2 adds no host sync to FastSLAM 1's one per superstep (the
+resample gate).
 
 With the heading unknown, ``FastSlam2`` has ``predict_multi``, all the
 control ticks of a superstep in one K6b launch (its twin on the CPU).
@@ -164,12 +163,9 @@ def fs2_update(state: ParticleState, z, ids, zmask, R, n_min: float, eps,
         logw=state.logw + corr, xv=xvs,
         Pv=torch.where(any_obs, torch.zeros_like(Pv0), Pv0))
 
-    # Likelihood weighting and map update at the sampled pose; the K2 arm
-    # reuses the planes gathered before the refinement (the landmarks
-    # have not moved since).
+    # Likelihood weighting and map update at the sampled pose.
     return update_at_pose(state, z, ids, slot, matched, is_new, R, n_min,
-                          uniform_at, do_resample=do_resample,
-                          gathered=gathered)
+                          uniform_at, do_resample=do_resample)
 
 
 class FastSlam2(FastSlam1):

@@ -6,7 +6,7 @@ package has one:
 id     wrapper                      replaces
 =====  ===========================  ===================================
 K1     kernels.jacobians            kernels.py:jacobians_tpu
-K2     kernels.observe              kernels.py:_observe_call
+K2     kernels.observe              kernels.py:fs1_observe_tpu
 K3     kernels.fs2_refine           kernels.py:fs2_refine_tpu
 K4     kernels.fused_update         kernels.py:fs1_update_tpu
 K5     kernels.resample_update      kernels.py:fs1_resample_update_tpu

@@ -54,7 +54,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported launcher; each returns cudaGetLastError().
 SIGNATURES = {
-    "slam_fs1_observe": [_P] * 8 + [_F] * 3 + [_I] * 2 + [_P] * 6 + [_P],
+    "slam_fs1_observe": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
     "slam_fs1_fused_update": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
     "slam_fs1_resample_update": [_P] * 12 + [_F] * 3 + [_I] * 4 + [_P],
     "slam_fs1_predict_multi": [_P] * 3 + [_F] * 5 + [_I] * 3 + [_P],

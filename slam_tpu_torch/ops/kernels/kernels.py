@@ -1,5 +1,5 @@
-"""K1, K2, K3, K4 and K5: the Jacobians, the FastSLAM 1 observation
-updates and the FastSLAM 2 proposal refinement (counterpart:
+"""K1, K2, K3, K4 and K5: the Jacobians, the FastSLAM 1 updates and
+the FastSLAM 2 proposal refinement (counterpart:
 slam_tpu.ops.pallas.kernels).
 
 Each kernel has a wrapper that dispatches on the device of its tensors:
@@ -37,20 +37,6 @@ def _check_cuda(tensors: dict, dtypes: dict) -> torch.device:
     return device
 
 
-def _observe_math(xv, gathered, z, matched, R):
-    """The observation update both twins share, on gathered landmark
-    planes [K, P]: (dlogw [P] summed over matched k, EKF-updated planes
-    of every k)."""
-    J = pk.jacobians_planes(xv[0:1], xv[1:2], xv[2:3], *gathered,
-                            *pk.sym2_host(R))
-    v0 = z[:, 0:1] - J.zr
-    v1 = wrap_angle(z[:, 1:2] - J.zb)
-    logl = torch.where(matched[:, None],
-                       pk.log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11),
-                       0.0)
-    return logl.sum(dim=0), pk.feature_update_planes(*gathered, v0, v1, J)
-
-
 # ---------------------------------------------------------------------------
 # K1: batched Jacobians on pre-gathered planes
 # ---------------------------------------------------------------------------
@@ -82,52 +68,6 @@ def jacobians(xv, lmx, lmy, p00, p01, p11, R) -> pk.JacobianPlanes:
 
 
 jacobians.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K2: fused observe on pre-gathered planes
-# ---------------------------------------------------------------------------
-
-def observe_plain(xv, lmx, lmy, p00, p01, p11, z, matched, R):
-    """Plain twin of K2. xv [3, P]; gathered planes [K, P]; z [K, 2];
-    matched [K] bool. Returns (dlogw [P], nx, ny, np00, np01, np11)."""
-    dlogw, upd = _observe_math(xv, (lmx, lmy, p00, p01, p11), z, matched,
-                               R)
-    m = matched[:, None]
-    return (dlogw,
-            torch.where(m, upd.nx, lmx), torch.where(m, upd.ny, lmy),
-            torch.where(m, upd.np00, p00), torch.where(m, upd.np01, p01),
-            torch.where(m, upd.np11, p11))
-
-
-def observe(xv, lmx, lmy, p00, p01, p11, z, matched, R):
-    """K2 (replaces kernels.py:_observe_call): the twin on the CPU, the
-    CUDA kernel csrc/observe.cu on the card."""
-    if not xv.is_cuda:
-        return observe_plain(xv, lmx, lmy, p00, p01, p11, z, matched, R)
-    K, P = lmx.shape
-    _check_cuda(dict(xv=xv, lmx=lmx, lmy=lmy, p00=p00, p01=p01, p11=p11,
-                     z=z, matched=matched), dict(matched=torch.bool))
-    _require(xv.shape == (3, P) and z.shape == (K, 2)
-             and matched.shape == (K,)
-             and all(t.shape == (K, P) for t in (lmy, p00, p01, p11)),
-             "observe: shapes do not match xv [3, P], planes [K, P], "
-             "z [K, 2], matched [K]")
-    lib = build.load_library()
-    dlogw = torch.empty(P, dtype=torch.float32, device=xv.device)
-    outs = [torch.empty_like(lmx) for _ in range(5)]
-    err = lib.slam_fs1_observe(
-        xv.data_ptr(), lmx.data_ptr(), lmy.data_ptr(), p00.data_ptr(),
-        p01.data_ptr(), p11.data_ptr(), z.data_ptr(), matched.data_ptr(),
-        *pk.sym2_host(R), K, P, dlogw.data_ptr(),
-        *[o.data_ptr() for o in outs],
-        torch.cuda.current_stream(xv.device).cuda_stream)
-    build.check(err, "slam_fs1_observe")
-    observe.launches += 1
-    return (dlogw, *outs)
-
-
-observe.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +129,17 @@ fs2_refine.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: fused in-place update on the landmark state
+# K4 and K2: the in-place update on the landmark state
 # ---------------------------------------------------------------------------
 
 def fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
                        ok_new, R):
-    """Plain twin of K4, in place like the kernel: logw [P] += dlogw;
-    matched slots of lm [2, L, P] / lm_P [3, L, P] get their EKF
-    update, ``ok_new`` slots their new feature. Untouched slots keep
-    their values."""
+    """Plain twin of K4 and K2, in place like the kernels: logw [P] +=
+    the log-likelihood summed over the matched k; the matched slots of
+    lm [2, L, P] / lm_P [3, L, P] get their EKF update, the ``ok_new``
+    slots their new feature, in one write where the first valid entry
+    aimed at a slot wins, every update computed from the old values.
+    Untouched slots keep their values."""
     # Imported here: models.rbpf imports this package (through
     # models.particles), so a module-level import would be circular.
     from slam_tpu_torch.models.rbpf import scatter_slots
@@ -205,8 +147,14 @@ def fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
     L = lm.shape[1]
     gathered = (lm[0, slot], lm[1, slot], lm_P[0, slot], lm_P[1, slot],
                 lm_P[2, slot])
-    dlogw, upd = _observe_math(xv, gathered, z, matched, R)
-    logw += dlogw
+    J = pk.jacobians_planes(xv[0:1], xv[1:2], xv[2:3], *gathered,
+                            *pk.sym2_host(R))
+    v0 = z[:, 0:1] - J.zr
+    v1 = wrap_angle(z[:, 1:2] - J.zb)
+    logw += torch.where(matched[:, None],
+                        pk.log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11),
+                        0.0).sum(dim=0)
+    upd = pk.feature_update_planes(*gathered, v0, v1, J)
     ini = pk.feature_init_planes(xv[0:1], xv[1:2], xv[2:3], z[:, 0:1],
                                  z[:, 1:2], *pk.sym2_host(R))
     # One write of matched updates and new features: their slots are
@@ -220,15 +168,10 @@ def fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
                              torch.stack(ini[2:])], dim=1), valid)
 
 
-def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
-                 R) -> None:
-    """K4 (replaces kernels.py:fs1_update_tpu), in place on logw, lm and
-    lm_P: the twin on the CPU, the CUDA kernel csrc/fused_update.cu on
-    the card."""
-    if not xv.is_cuda:
-        fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
-                           ok_new, R)
-        return
+def _update_launch(name, xv, logw, lm, lm_P, z, slot, matched, slot_new,
+                   ok_new, R) -> None:
+    """Check the arguments of K4 or K2 (one contract) and launch the
+    kernel ``name`` of the library in place on logw, lm and lm_P."""
     _, L, P = lm.shape
     K = z.shape[0]
     _check_cuda(dict(xv=xv, logw=logw, lm=lm, lm_P=lm_P, z=z, slot=slot,
@@ -240,19 +183,59 @@ def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
              and z.shape == (K, 2)
              and all(t.shape == (K,)
                      for t in (slot, matched, slot_new, ok_new)),
-             "fused_update: shapes do not match xv [3, P], logw [P], "
+             f"{name}: shapes do not match xv [3, P], logw [P], "
              "lm [2, L, P], lm_P [3, L, P], z [K, 2], slots [K]")
-    lib = build.load_library()
-    err = lib.slam_fs1_fused_update(
+    err = getattr(build.load_library(), name)(
         xv.data_ptr(), logw.data_ptr(), lm.data_ptr(), lm_P.data_ptr(),
         z.data_ptr(), slot.data_ptr(), matched.data_ptr(),
         slot_new.data_ptr(), ok_new.data_ptr(), *pk.sym2_host(R), K, L, P,
         torch.cuda.current_stream(xv.device).cuda_stream)
-    build.check(err, "slam_fs1_fused_update")
+    build.check(err, name)
+
+
+def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
+                 R) -> None:
+    """K4 (replaces kernels.py:fs1_update_tpu), in place on logw, lm and
+    lm_P: the twin on the CPU, the CUDA kernel csrc/fused_update.cu (one
+    thread per particle) on the card."""
+    if not xv.is_cuda:
+        fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
+                           ok_new, R)
+        return
+    _update_launch("slam_fs1_fused_update", xv, logw, lm, lm_P, z, slot,
+                   matched, slot_new, ok_new, R)
     fused_update.launches += 1
 
 
 fused_update.launches = 0
+
+
+def observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
+                  R) -> None:
+    """Plain twin of K2: K4's function, ``fused_update_plain``."""
+    fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
+                       ok_new, R)
+
+
+def observe(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
+            R) -> None:
+    """K2 (replaces kernels.py:_observe_call and, around it, the gather,
+    scatters and add_new_features of the JAX package's update at a P
+    that is no multiple of 128): K4's contract at any P, in place on
+    logw, lm and lm_P. The twin on the CPU, the CUDA kernel
+    csrc/observe.cu (one thread per (observation, particle) pair) on
+    the card; on a slot that two matched observations share it keeps the
+    first one's update, as the twin does."""
+    if not xv.is_cuda:
+        observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
+                      ok_new, R)
+        return
+    _update_launch("slam_fs1_observe", xv, logw, lm, lm_P, z, slot,
+                   matched, slot_new, ok_new, R)
+    observe.launches += 1
+
+
+observe.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,20 +3,26 @@ function, and per superstep of a run.
 
 ``kernel_times(prof)`` sums a profile's kernels by name;
 ``device_ms(fn)`` is the mean device time of one call of ``fn`` (the
-kernels it ran, summed). ``main`` profiles the run loop of BASELINE
-config #5's filter (``FastSlam1Deferred`` at 2^20 particles, capacity
-192, at most 96 observations, seed 3):
+kernels it ran, summed). ``main`` profiles the run loop of one slice,
+seed 3:
 
-    python -m slam_tpu_torch.runtime.profiling [--out DIR]
+    python -m slam_tpu_torch.runtime.profiling [--slice SLICE] [--out DIR]
 
-It runs the loop once to warm up, then profiles a run of ``--short``
-and one of ``--long`` supersteps, and reports per superstep the
-difference of the two over the extra supersteps (set-up and the final
-copies cancel): device time, device events (kernels and copies) and
-the time of each kernel; then the loop wall of two unprofiled runs of
-``--long`` supersteps and the device busy share. The last line is one
-JSON object; ``--out DIR`` also writes the per-kernel table there.
-Needs a CUDA card.
+- ``config5`` (the default): BASELINE config #5's filter,
+  ``FastSlam1Deferred`` at 2^20 particles, capacity 192, at most 96
+  observations;
+- ``eager-small``: FastSLAM 1 on data/dense200 at P = 100 (K2, G1);
+- ``fs2-small``: FastSLAM 2 on data/dense200 at P = 100 (K3, K2, G1).
+
+A run goes ``--warm`` supersteps (dense200's vehicle first sees a
+landmark at superstep 137, so those slices warm up for 150), then
+measures a window of ``--supersteps`` more, between two device syncs.
+One run takes the window under the profiler: per superstep the device
+time, the device events (kernels and copies) and the time of each
+kernel. Two more runs take it without: the loop wall per superstep (and
+the device busy share against it), the host syncs and the kernel
+launches per superstep. The last line is one JSON object; ``--out DIR``
+also writes the per-kernel table there. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -62,51 +68,112 @@ def device_ms(fn, iters: int = 10):
     return us / iters / 1e3 if us > 0 else None
 
 
-def profile_config5(short: int, long: int, seed: int = 3,
-                    top: int = 12) -> dict:
-    """Per-superstep device time, device events and kernel table of
-    config #5's deferred filter, as the difference of a ``long`` and a
-    ``short`` profiled run."""
-    from slam_tpu_torch.models import FastSlam1Deferred
-    from slam_tpu_torch.runtime.config5 import config5_setup
+SLICES = ("config5", "eager-small", "fs2-small")
+# (warm-up supersteps, measured supersteps) by default, per slice.
+WINDOWS = {"config5": (16, 16), "eager-small": (150, 40),
+           "fs2-small": (150, 40)}
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                    os.pardir, "data")
+
+
+def slice_runner(name: str, device):
+    """The Runner of a slice on ``device``."""
     from slam_tpu_torch.runtime.loop import Runner
 
-    device = torch.device("cuda", 0)
-    cfg, slam_map = config5_setup(10_000, capacity=192, max_obs=96)
-    runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=2 ** 20,
-                    estimator=FastSlam1Deferred(cfg, slam_map.n_landmarks,
-                                                device=device))
-    period = cfg.steps_per_observe
-    runner.run(seed=seed, n_ticks=short * period)   # warm-up
-    tables = []
-    for n in (short, long):
+    if name == "config5":
+        from slam_tpu_torch.models import FastSlam1Deferred
+        from slam_tpu_torch.runtime.config5 import config5_setup
+        cfg, slam_map = config5_setup(10_000, capacity=192, max_obs=96)
+        return Runner(cfg, slam_map, "FASTSLAM1", n_particles=2 ** 20,
+                      estimator=FastSlam1Deferred(
+                          cfg, slam_map.n_landmarks, device=device))
+    from slam_tpu_torch.config import SlamConfig
+    from slam_tpu_torch.maps import read_map_file
+    cfg = SlamConfig.from_ini(os.path.join(DATA, "dense200.ini"))
+    slam_map = read_map_file(os.path.join(DATA, "dense200.mat"))
+    method = {"eager-small": "FASTSLAM1", "fs2-small": "FASTSLAM2"}[name]
+    return Runner(cfg, slam_map, method, n_particles=100, device=device)
+
+
+class _Windowed:
+    """An estimator with another ``update``; every other attribute is
+    the estimator's."""
+
+    def __init__(self, est, update):
+        self._est, self.update = est, update
+
+    def __getattr__(self, name):
+        return getattr(self._est, name)
+
+
+def window_run(runner, seed: int, warm: int, n: int, prof=None) -> dict:
+    """One run of ``warm + n`` supersteps whose last ``n`` are measured,
+    from the end of update ``warm`` to the end of update ``warm + n``,
+    each end a device sync: per superstep the host wall (ms), the host
+    syncs and the kernel launches. ``prof``, a ``torch.profiler.profile``,
+    is started and stopped at the two ends."""
+    from slam_tpu_torch.models import rbpf
+    from slam_tpu_torch.ops import kernels
+
+    est = runner.est
+    marks = []
+
+    def mark():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            runner.run(seed=seed, n_ticks=n * period)
-            torch.cuda.synchronize()
-        tables.append(kernel_times(prof))
-    extra = long - short
-    per = {}
-    for key in set(tables[0]) | set(tables[1]):
-        t1, c1 = tables[1].get(key, (0.0, 0))
-        t0, c0 = tables[0].get(key, (0.0, 0))
-        per[key] = ((t1 - t0) / extra / 1e3, (c1 - c0) / extra,
-                    t1 / 1e3 / max(c1, 1))
-    walls = []
+        marks.append((time.perf_counter(), rbpf.host_bool.count,
+                      kernels.launch_counts()))
+
+    def windowed(*args, **kw):
+        out = est.update(*args, **kw)
+        windowed.calls += 1
+        if windowed.calls == warm:
+            mark()
+            if prof is not None:
+                prof.start()
+        elif windowed.calls == warm + n:
+            mark()
+            if prof is not None:
+                prof.stop()
+        return out
+    windowed.calls = 0
+    runner.est = _Windowed(est, windowed)
+    try:
+        runner.run(seed=seed,
+                   n_ticks=(warm + n) * runner.config.steps_per_observe)
+    finally:
+        runner.est = est
+    (t0, s0, l0), (t1, s1, l1) = marks
+    return dict(wall_ms=(t1 - t0) / n * 1e3, host_syncs=(s1 - s0) / n,
+                launches={k: (l1[k] - l0[k]) / n for k in l0
+                          if l1[k] > l0[k]})
+
+
+def profile_slice(name: str, warm: int, n: int, seed: int = 3,
+                  top: int = 12) -> dict:
+    """Per-superstep device time, device events and kernel table of a
+    slice over a window of ``n`` supersteps after ``warm``, and the
+    loop wall, host syncs and launches per superstep of two unprofiled
+    runs of the same window."""
+    runner = slice_runner(name, torch.device("cuda", 0))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window_run(runner, seed, warm, n, prof)
+    per = {key: (us / n / 1e3, calls / n, us / 1e3 / max(calls, 1))
+           for key, (us, calls) in kernel_times(prof).items()}
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        result = runner.run(seed=seed, n_ticks=long * period)
-        walls.append(result.wall_seconds / long * 1e3)
-        del result
+    runs = [window_run(runner, seed, warm, n) for _ in range(2)]
+    walls = [r["wall_ms"] for r in runs]
     device_time = sum(v[0] for v in per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     return dict(
-        slice="config5-deferred", supersteps=(short, long), seed=seed,
+        slice=name, warm=warm, supersteps=n, seed=seed,
         device_ms_per_superstep=device_time,
         events_per_superstep=sum(v[1] for v in per.values()),
         loop_wall_ms_per_superstep=walls,
+        steps_per_second=[runner.config.steps_per_observe / w * 1e3
+                          for w in walls],
         device_busy_share=[device_time / w for w in walls],
+        host_syncs_per_superstep=runs[0]["host_syncs"],
+        launches_per_superstep=runs[0]["launches"],
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         kernels=[dict(name=k, ms_per_superstep=v[0],
                       calls_per_superstep=v[1], ms_per_call=v[2])
@@ -116,15 +183,19 @@ def profile_config5(short: int, long: int, seed: int = 3,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--short", type=int, default=16)
-    ap.add_argument("--long", type=int, default=32)
+    ap.add_argument("--slice", choices=SLICES, default="config5")
+    ap.add_argument("--warm", type=int, default=None,
+                    help="warm-up supersteps (default: per slice)")
+    ap.add_argument("--supersteps", type=int, default=None,
+                    help="measured supersteps (default: per slice)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    warm, n = WINDOWS[args.slice]
     t0 = time.perf_counter()
-    res = profile_config5(args.short, args.long)
+    res = profile_slice(args.slice, args.warm or warm, args.supersteps or n)
     res["seconds"] = time.perf_counter() - t0
     for k in res["kernels"]:
         print(f"{k['ms_per_superstep']:.4f} ms/superstep "
@@ -133,7 +204,8 @@ def main(argv=None) -> int:
               flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile.json"), "w") as fh:
+        with open(os.path.join(args.out, f"profile-{args.slice}.json"),
+                  "w") as fh:
             json.dump(res, fh, indent=1)
     print(json.dumps({k: v for k, v in res.items() if k != "kernels"}))
     return 0

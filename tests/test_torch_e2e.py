@@ -59,8 +59,9 @@ def test_fastslam1_ate_within_jax_bound(ring40):
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
     assert int(result.final_state.n) > 0
-    # K2 path: the new-feature gate and the resample gate, one sync each.
-    assert result.host_syncs == 2 * len(result.active)
+    # K2 path: the resample gate, one sync a superstep (K2 writes the new
+    # features with no host gate).
+    assert result.host_syncs == len(result.active)
 
 
 def test_fastslam2_ate_within_jax_bound(ring40):
@@ -75,8 +76,8 @@ def test_fastslam2_ate_within_jax_bound(ring40):
     assert port_ate < MARGIN * jax_ate, (port_ate, jax_ate)
     assert result.est_pose.shape == (400 // cfg.steps_per_observe, 3)
     assert int(result.final_state.n) > 0
-    # K2 path: FastSLAM 2 adds no sync to FastSLAM 1's two.
-    assert result.host_syncs == 2 * len(result.active)
+    # K2 path: FastSLAM 2 adds no sync to FastSLAM 1's one.
+    assert result.host_syncs == len(result.active)
 
 
 def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(
@@ -135,6 +136,20 @@ def test_cli_writes_report(tmp_path, method):
     assert "ATE RMSE" in (out / "results.txt").read_text()
     assert np.loadtxt(out / "errors.txt").shape[0] == np.loadtxt(
         out / "positions.txt", delimiter=",").shape[0]
+
+
+def test_cli_warns_on_an_unsupported_mode_and_runs(tmp_path):
+    """-mode other than waypoints: a warning on stderr and the waypoint
+    run, as the JAX package's CLI does."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "slam_tpu_torch", "-m",
+         os.path.join(DATA, "ring40.mat"), "-mode", "foo", "-particles",
+         "8", "-ticks", "40", "-device", "cpu", "-n", "run", "-out",
+         str(tmp_path)],
+        capture_output=True, text=True, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "warning: mode 'foo' not supported; using waypoints" in proc.stderr
+    assert (tmp_path / "run" / "results.txt").exists()
 
 
 def test_port_never_imports_jax(tmp_path):

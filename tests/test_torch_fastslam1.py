@@ -10,7 +10,13 @@ torch.cumsum may move a stratum boundary).
 
 Tolerance: planes and log weights at rtol 1e-5, atol 1e-5 (float32
 rounding through 8 predict ticks, the Jacobians and the EKF); n,
-da_table, the Neff gate decision and the ancestors exactly."""
+da_table, the Neff gate decision and the ancestors exactly.
+
+``test_drive_matches_jax`` runs both packages' ``fs1_update`` for 24
+supersteps on the JAX simulator's observation stream, each side on its
+own state, on both dispatch arms; there rounding compounds over the
+supersteps, so poses, weights and planes are held at rtol 1e-4, atol
+1e-4."""
 
 import math
 import os
@@ -199,3 +205,155 @@ def test_fs1_update_dispatch_follows_particle_count(scene, P, want,
                              for a in (obs.z, obs.ids, obs.mask)), R,
                     float(P), trs.uniform_from_generator(P, g))
     assert calls == want
+
+
+# ---------------------------------------------------------------------------
+# Many supersteps against JAX
+# ---------------------------------------------------------------------------
+
+DRIVE_SUPERSTEPS = 24
+TOL_DRIVE = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def stream():
+    """ring40's JAX simulator, seed 3, from the first superstep whose
+    observation batch sees three landmarks (a fourth comes into view
+    nine supersteps later): the true pose before it, then for each of
+    DRIVE_SUPERSTEPS supersteps the noisy controls of its ticks [T, 2]
+    and its batch (z, ids, mask) as numpy."""
+    cfg = SlamConfig.from_ini(os.path.join(DATA, "ring40.ini"))
+    slam_map = read_map_file(os.path.join(DATA, "ring40.mat"))
+    sim = JSimulator(cfg, slam_map)
+    s = sim.init(seed=3)
+    step, observe = jax.jit(sim.control_step), jax.jit(sim.observe_step)
+    pose, steps, ctl = None, [], []
+    for _ in range(4000 // cfg.steps_per_observe):
+        for _ in range(cfg.steps_per_observe):
+            s, c = step(s)
+            ctl.append((c.v_noisy, c.g_noisy))
+        s, obs = observe(s)
+        if steps or int(obs.count) >= 3:
+            steps.append((np.asarray(ctl, np.float32),
+                          tuple(np.asarray(a)
+                                for a in (obs.z, obs.ids, obs.mask))))
+            if len(steps) == DRIVE_SUPERSTEPS:
+                return cfg, slam_map, pose, steps
+        else:
+            pose = np.asarray(s.vehicle.pose)
+        ctl = []
+    raise AssertionError("the vehicle never sees a landmark")
+
+
+@jax.jit
+def _jax_predict(xv, V, G, wheelbase, dt):
+    for t in range(V.shape[0]):
+        xv = jrbpf.propagate_poses(xv, V[t], G[t], wheelbase, dt)
+    return xv
+
+
+@jax.jit
+def _jax_drive_update(state, key, z, ids, zmask, R, n_min):
+    """JAX's fs1_update (use_pallas=False) and what the port is fed and
+    held to: the pre-resample state, the gate, the prefix sum of the
+    stratified resample, its dither U and its ancestors."""
+    pre = []
+
+    def resample(s, key, n_min):
+        pre.append(s)
+        return jrbpf.resample(s, key, n_min, True)
+    post = jfs1.fs1_update(state, key, z, ids, zmask, R, n_min,
+                           use_pallas=False, resample_fn=resample)
+    logw_n = jrs.normalize_log_weights(pre[0].logw)
+    P = logw_n.shape[0]
+    return dict(post=post, need=jrs.effective_particles(logw_n) < n_min,
+                csum=jrs._cumsum_2d(jnp.exp(jrs.normalize_log_weights(
+                    logw_n))),
+                U=jrs._uniform_at(key, jnp.arange(P, dtype=jnp.int32)),
+                idx=jrs.stratified_indices(key, logw_n))
+
+
+@pytest.mark.parametrize("P", [64, 512], ids=["K2-G1", "K4-G2"])
+def test_drive_matches_jax(stream, P, monkeypatch):
+    """24 supersteps of FastSLAM 1, each package on its own state from
+    the same start (every particle at the true pose, no landmark
+    mapped), on one observation stream: per superstep the motion noise
+    from one numpy draw, JAX's stratified dither and prefix sum injected.
+    After each superstep: poses, weights and planes at TOL_DRIVE; n,
+    da_table, the gate and the ancestors exactly. The resample fires
+    and holds along the way. About 3 s per particle count on one CPU
+    worker, JAX's compiles included (the stream fixture: 1.5 s)."""
+    cfg, slam_map, pose, steps = stream
+    n_map = slam_map.n_landmarks
+    L = -(-n_map // 8) * 8
+    jstate = jinit(P, L, n_map)._replace(
+        xv=jnp.asarray(np.repeat(pose[:, None], P, axis=1)))
+    tstate = state_from_numpy(_as_numpy(jstate), device="cpu")
+    R = np.diag(np.asarray(cfg.Re, np.float32))
+    n_min = float(cfg.NEFFECTIVE * P / cfg.NPARTICLES)
+    sig = np.sqrt(np.asarray(cfg.Qe, np.float32))
+    rng = np.random.default_rng(P)
+
+    seen = dict(gates=[], ancestors=[])
+    resample_gate, gather = trbpf.resample_gate, {}
+
+    def gate(logw, n_min, do_resample):
+        logw_n, fired = resample_gate(logw, n_min, do_resample)
+        seen["gates"].append(fired)
+        return logw_n, fired
+    monkeypatch.setattr(trbpf, "resample_gate", gate)
+    for name, to_ancestors in (
+            ("gather_particles", lambda idx: idx),
+            ("gather_particles_bounds",
+             lambda S: trs.ancestors_from_bounds(S, P))):
+        def wrapped(state, sel, _fn=getattr(trbpf, name), _a=to_ancestors):
+            seen["ancestors"].append(_a(sel))
+            return _fn(state, sel)
+        monkeypatch.setattr(trbpf, name, wrapped)
+    csum = {}
+    monkeypatch.setattr(trs, "cumulative_weights", lambda logw: csum["now"])
+
+    for i, (ctl, (z, ids, zmask)) in enumerate(steps):
+        T = ctl.shape[0]
+        V = (ctl[:, 0:1] + rng.normal(size=(T, P)) * sig[0]).astype(
+            np.float32)
+        G = (ctl[:, 1:2] + rng.normal(size=(T, P)) * sig[1]).astype(
+            np.float32)
+        jstate = jstate._replace(xv=_jax_predict(
+            jstate.xv, jnp.asarray(V), jnp.asarray(G), cfg.WHEELBASE,
+            cfg.DT_CONTROLS))
+        txv = tstate.xv
+        for t in range(T):
+            txv = trbpf.propagate_poses(txv, torch.tensor(V[t]),
+                                        torch.tensor(G[t]), cfg.WHEELBASE,
+                                        cfg.DT_CONTROLS)
+        tstate = tstate._replace(xv=txv)
+
+        want = _jax_drive_update(jstate, jax.random.PRNGKey(100 + i),
+                                 jnp.asarray(z), jnp.asarray(ids),
+                                 jnp.asarray(zmask), jnp.asarray(R),
+                                 jnp.float32(n_min))
+        csum["now"] = torch.tensor(np.asarray(want["csum"]))
+        U = torch.tensor(np.asarray(want["U"]))
+        n_seen = len(seen["ancestors"])
+        tstate = tfs1.fs1_update(tstate, torch.tensor(z), torch.tensor(ids),
+                                 torch.tensor(zmask), R, n_min,
+                                 lambda pos: U[pos])
+        jstate = want["post"]
+
+        need = bool(want["need"])
+        assert seen["gates"][-1] == need, f"superstep {i}: gate"
+        assert len(seen["ancestors"]) == n_seen + need
+        if need:
+            np.testing.assert_array_equal(
+                seen["ancestors"][-1].numpy(), np.asarray(want["idx"]),
+                err_msg=f"superstep {i}: ancestors")
+        got, exp = state_to_numpy(tstate), _as_numpy(jstate)
+        for f in ("logw", "xv", "lm", "lm_P"):
+            np.testing.assert_allclose(got[f], exp[f], **TOL_DRIVE,
+                                       err_msg=f"superstep {i}: {f}")
+        for f in ("n", "da_table"):
+            np.testing.assert_array_equal(got[f], exp[f],
+                                          err_msg=f"superstep {i}: {f}")
+    assert True in seen["gates"] and False in seen["gates"]
+    assert int(tstate.n) == 4

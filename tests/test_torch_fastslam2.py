@@ -550,9 +550,16 @@ def test_log_likelihood_at_matches_jax_and_the_k2_twin(scene):
     tg = tuple(map(_t, gathered))
     got = tfs2._log_likelihood_at(_t(jstate.xv), _t(z), _t(matched), tg, R)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    dlogw = tkernels.observe_plain(_t(jstate.xv), *tg, _t(z), _t(matched),
-                                   R)[0]
-    assert torch.equal(got, dlogw)
+    # K2's twin, from zero weights and with no new feature, adds exactly
+    # this term to logw.
+    tstate = state_from_numpy(_as_numpy(jstate), device="cpu")
+    logw = torch.zeros_like(tstate.logw)
+    K = z.shape[0]
+    tkernels.observe_plain(tstate.xv, logw, tstate.lm, tstate.lm_P, _t(z),
+                           _t(slot).to(torch.int32), _t(matched),
+                           torch.zeros(K, dtype=torch.int32),
+                           torch.zeros(K, dtype=torch.bool), R)
+    assert torch.equal(got, logw)
 
 
 @pytest.mark.parametrize("P,want", [(64, {"K3", "K2", "G1"}),

@@ -33,24 +33,10 @@ def _t(a, device="cpu"):
     return torch.tensor(np.asarray(a), device=device)
 
 
-def _observe_inputs(P=300, K=5, seed=0):
-    rng = np.random.default_rng(seed)
-    xv = rng.normal(size=(3, P)).astype(np.float32)
-    lmx = (xv[0] + rng.normal(size=(K, P)) * 5 + 2).astype(np.float32)
-    lmy = (xv[1] + rng.normal(size=(K, P)) * 5 + 1).astype(np.float32)
-    A = rng.normal(size=(K, P)).astype(np.float32) * 0.3
-    B = rng.normal(size=(K, P)).astype(np.float32) * 0.3
-    planes = [lmx, lmy, A * A + 0.05, 0.3 * A * B, B * B + 0.05]
-    z = np.column_stack([rng.uniform(3, 8, K),
-                         rng.uniform(-0.5, 0.5, K)]).astype(np.float32)
-    matched = np.arange(K) % 3 != 1
-    return xv, planes, z, matched
-
-
-def _update_inputs(P=256, L=16, n_map=24, seed=11):
+def _mid_run(P=256, L=16, n_map=24, seed=11):
     """A JAX ParticleState with 10 live slots, and an observation batch
-    with matched, new (two of them), and masked entries; plus the
-    bookkeeping fs1_update derives from it."""
+    (z, ids, zmask) with matched, new (two of them) and masked
+    entries."""
     rng = np.random.default_rng(seed)
     table = -np.ones(n_map, np.int32)
     table[2:12] = np.arange(10)
@@ -58,6 +44,7 @@ def _update_inputs(P=256, L=16, n_map=24, seed=11):
     lm_P[0], lm_P[2] = 0.1, 0.1
     lm_P[1] = 0.01
     state = jinit(P, L, n_map)._replace(
+        logw=jnp.asarray(rng.normal(size=P).astype(np.float32)),
         xv=jnp.asarray(rng.normal(size=(3, P)).astype(np.float32) * 0.1),
         lm=jnp.asarray(rng.normal(size=(2, L, P)).astype(np.float32) * 5),
         lm_P=jnp.asarray(lm_P), n=jnp.int32(10),
@@ -68,6 +55,13 @@ def _update_inputs(P=256, L=16, n_map=24, seed=11):
                                     ).astype(np.float32))
     ids = jnp.asarray(np.array([3, 15, 11, 20, 4], np.int32))
     zmask = jnp.asarray(np.array([True, True, True, True, False]))
+    return state, z, ids, zmask
+
+
+def _update_inputs(P=256, L=16, n_map=24, seed=11):
+    """``_mid_run``'s state and batch, and the bookkeeping fs1_update
+    derives from it: (state, z, slot, matched, slot_new, ok)."""
+    state, z, ids, zmask = _mid_run(P, L, n_map, seed)
     assoc, is_new = jrbpf.associate_known(state, ids, zmask)
     matched = assoc >= 0
     slot = jnp.where(matched, assoc, 0)
@@ -105,21 +99,76 @@ def _bounds(P, seed=6):
 # ---------------------------------------------------------------------------
 
 def test_k2_twin_matches_observe_call():
-    xv, planes, z, matched = _observe_inputs(P=300, K=5)
-    want = jkernels._observe_call(
-        *map(jnp.asarray, (xv, *planes, z, matched)), jnp.asarray(R),
-        interpret=True)
-    got = tkernels.observe_plain(_t(xv), *map(_t, planes), _t(z),
-                                 _t(matched), R)
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0])[0],
-                               **TOL)
-    for g, w, name in zip(got[1:], want[1:],
-                          ("nx", "ny", "np00", "np01", "np11")):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
-                                   err_msg=name)
-    # Unmatched observations pass through bit for bit.
-    un = ~matched
-    np.testing.assert_array_equal(got[1].numpy()[un], planes[0][un])
+    """K2's twin against the JAX package's update at a P that is no
+    multiple of 128: fs1_observe_tpu (the gather, _observe_call in
+    interpret mode, the scatters and the weight delta), then
+    add_new_features."""
+    state, z, ids, zmask = _mid_run(P=300)
+    assoc, is_new = jrbpf.associate_known(state, ids, zmask)
+    matched = assoc >= 0
+    slot = jnp.where(matched, assoc, 0)
+    want = jkernels.fs1_observe_tpu(state, z, slot, matched,
+                                    jnp.asarray(R), interpret=True)
+    want = jrbpf.add_new_features(want, z, ids, is_new, jnp.asarray(R))
+    _, *batch = _update_inputs(P=300)
+    m, o = np.asarray(batch[2]), np.asarray(batch[4])
+    assert m.any() and o.any() and not (m | o).all()
+    xv, logw, lm, lm_P, *rest = _update_args(state, *batch)
+    tkernels.observe(xv, logw, lm, lm_P, *rest)      # CPU: the twin
+    np.testing.assert_allclose(logw.numpy(), np.asarray(want.logw), **TOL)
+    np.testing.assert_allclose(lm.numpy(), np.asarray(want.lm), **TOL)
+    np.testing.assert_allclose(lm_P.numpy(), np.asarray(want.lm_P), **TOL)
+
+
+def _observe_call_at_slots(state, slot, z, matched):
+    """JAX's K2 on the planes gathered at ``slot``: (dlogw [P], updated
+    planes [5, K, P])."""
+    gathered = jrbpf.gather_landmarks(state, slot)
+    dlogw, *planes = jkernels._observe_call(
+        state.xv, *gathered, z, matched, jnp.asarray(R), interpret=True)
+    return np.asarray(dlogw)[0], np.stack([np.asarray(p) for p in planes])
+
+
+def _twin_from_zero_weights(state, batch):
+    """K2's twin with logw = 0, so that logw comes back as the weight
+    delta: (dlogw [P], lm [2, L, P], lm_P [3, L, P]) as numpy."""
+    xv, logw, lm, lm_P, *rest = _update_args(state, *batch)
+    logw.zero_()
+    tkernels.observe_plain(xv, logw, lm, lm_P, *rest)
+    return logw.numpy(), lm.numpy(), lm_P.numpy()
+
+
+def test_k2_twin_weight_and_matched_slots_match_observe_call():
+    """The weight delta and the matched slots' planes of K2's twin
+    against _observe_call (interpret mode) on the gathered planes."""
+    state, z, slot, matched, slot_new, ok = _update_inputs(P=300)
+    dlogw, planes = _observe_call_at_slots(state, slot, z, matched)
+    got_w, lm, lm_P = _twin_from_zero_weights(
+        state, (z, slot, matched, slot_new, ok))
+    np.testing.assert_allclose(got_w, dlogw, **TOL)
+    got = np.concatenate([lm, lm_P])
+    for k in np.flatnonzero(np.asarray(matched)):
+        np.testing.assert_allclose(got[:, int(slot[k])], planes[:, k],
+                                   **TOL, err_msg=f"k={k}")
+
+
+def test_k2_twin_keeps_the_first_update_of_a_shared_slot():
+    """Two matched observations of one landmark: its slot takes the
+    first one's update, and both updates and both weight terms come
+    from the old values, as K2 on the card computes them."""
+    state, z, slot, matched, slot_new, ok = _update_inputs(P=300)
+    k0, k1 = np.flatnonzero(np.asarray(matched))[:2]
+    freed = int(slot[k1])
+    slot = slot.at[k1].set(slot[k0])
+    dlogw, planes = _observe_call_at_slots(state, slot, z, matched)
+    got_w, lm, lm_P = _twin_from_zero_weights(
+        state, (z, slot, matched, slot_new, ok))
+    np.testing.assert_allclose(got_w, dlogw, **TOL)
+    got = np.concatenate([lm, lm_P])
+    np.testing.assert_allclose(got[:, int(slot[k0])], planes[:, k0], **TOL)
+    assert not np.allclose(planes[:, k0], planes[:, k1])
+    old = np.concatenate([np.asarray(state.lm), np.asarray(state.lm_P)])
+    np.testing.assert_array_equal(got[:, freed], old[:, freed])
 
 
 def test_k4_twin_matches_fs1_update_tpu():
@@ -176,9 +225,12 @@ def test_g2_twin_matches_bounds_gather_multi():
 
 def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     tk.reset_launch_counts()
-    xv, planes, z, matched = _observe_inputs(P=40, K=4, seed=1)
-    args = (_t(xv), *map(_t, planes), _t(z), _t(matched), R)
-    for g, w in zip(tk.observe(*args), tkernels.observe_plain(*args)):
+    state, *batch = _update_inputs(P=40, L=16, seed=1)
+    a1 = _update_args(state, *batch)
+    a2 = _update_args(state, *batch)
+    tk.observe(*a1)
+    tkernels.observe_plain(*a2)
+    for g, w in zip(a1[:4], a2[:4]):
         assert torch.equal(g, w)
 
     state, *batch = _update_inputs(P=64, L=16)
@@ -248,14 +300,25 @@ def cuda():
 
 @pytest.mark.cuda
 def test_k2_kernel_matches_twin_on_card(cuda):
-    xv, planes, z, matched = _observe_inputs(P=1000, K=15, seed=2)
-    args = (_t(xv, cuda), *[_t(p, cuda) for p in planes], _t(z, cuda),
-            _t(matched, cuda), R)
-    before = tk.observe.launches
-    got = tk.observe(*args)
-    assert tk.observe.launches == before + 1
-    for g, w in zip(got, tkernels.observe_plain(*args)):
-        torch.testing.assert_close(g, w, **TOL)
+    """K2 within TOL of its twin and bit-equal to K4 on distinct slots;
+    on a slot that two matched observations share, within TOL of its
+    twin (K4 is not expected to match there)."""
+    state, z, slot, matched, slot_new, ok = _update_inputs(P=1000, L=16)
+    k0, k1 = np.flatnonzero(np.asarray(matched))[:2]
+    for sl in (slot, slot.at[k1].set(slot[k0])):
+        batch = (z, sl, matched, slot_new, ok)
+        a_k2, a_twin, a_k4 = (_update_args(state, *batch, device=cuda)
+                              for _ in range(3))
+        before = tk.observe.launches
+        tk.observe(*a_k2)
+        assert tk.observe.launches == before + 1
+        tkernels.observe_plain(*a_twin)
+        tk.fused_update(*a_k4)
+        torch.cuda.synchronize()
+        for g, w, f in zip(a_k2[1:4], a_twin[1:4], a_k4[1:4]):
+            torch.testing.assert_close(g, w, **TOL)
+            if sl is slot:
+                assert torch.equal(g, f)
 
 
 @pytest.mark.cuda

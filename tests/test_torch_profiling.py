@@ -1,0 +1,54 @@
+"""The window of ``slam_tpu_torch.runtime.profiling`` on the CPU: the
+measured supersteps, their host syncs and launches, and the estimator
+left as it was. The profile itself needs a card (``main`` refuses to
+run without one); here the device syncs at the window's ends are
+no-ops."""
+
+import os
+
+import pytest
+import torch
+
+from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.maps import read_map_file
+from slam_tpu_torch.runtime import profiling
+from slam_tpu_torch.runtime.loop import Runner
+
+DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data")
+
+
+@pytest.fixture
+def no_device_sync(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+@pytest.mark.parametrize("method", ["FASTSLAM1", "FASTSLAM2"])
+def test_window_counts_the_measured_supersteps(no_device_sync, method):
+    cfg = SlamConfig.from_ini(os.path.join(DATA, "ring40.ini"))
+    slam_map = read_map_file(os.path.join(DATA, "ring40.mat"))
+    runner = Runner(cfg, slam_map, method, n_particles=16, device="cpu")
+    est, calls = runner.est, []
+    update = est.update
+    est.update = lambda *a, **k: calls.append(1) or update(*a, **k)
+    out = profiling.window_run(runner, seed=3, warm=3, n=4)
+    assert len(calls) == 7
+    assert out["wall_ms"] > 0
+    # The resample gate, once a superstep; no kernel launches on the CPU.
+    assert out["host_syncs"] == 1.0 and out["launches"] == {}
+    assert runner.est is est
+
+
+def test_slices_build_their_runners():
+    for name in ("eager-small", "fs2-small"):
+        runner = profiling.slice_runner(name, torch.device("cpu"))
+        assert runner.n_particles == 100 and runner.map.n_landmarks == 200
+        assert runner.method == {"eager-small": "FASTSLAM1",
+                                 "fs2-small": "FASTSLAM2"}[name]
+    assert set(profiling.WINDOWS) == set(profiling.SLICES)
+
+
+def test_main_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profiling.main(["--slice", "eager-small"])
