@@ -83,6 +83,30 @@ Phases, in order; any failure raises and exits non-zero:
 6. Replay: seed 3 at P = 131072 twice, eager and deferred, and slice
    (f) seed 3 twice, give bit-identical estimates (no reduction or scan
    on the paths rounds by timing).
+7. EKF-SLAM end to end through Runner, no device named:
+   (g) ekf-webmap: EKF1, the default method, on the world of the JAX
+       package's ekf1_webmap line (heading unknown, association
+       unknown), 2000 ticks, seeds 3-8;
+   (h) ekf-dense200: EKF1 on dense200 with the heading known (the
+       Joseph heading update every tick), 2000 ticks, seeds 3, 4, 5;
+   (i) ekf-10k: the landmark-block ShardedEkfSlam at 10k landmarks
+       (config5_setup(10_000, capacity=10_000, max_obs=96), a 1.6 GB
+       covariance), 640 ticks, seeds 3, 4, 5.
+   Each runs its supersteps with torch.cuda.set_sync_debug_mode("error")
+   (any host sync raises) and RunResult.host_syncs 0, launches none of
+   the nine kernels, leaves the runner, simulator, estimator and final
+   state on the card, and must reach an RMS ATE below twice the JAX
+   package's (JAX_EKF_*_ATE_M); one more run is profiled over a window
+   for the device time per superstep.
+8. Sharded against dense: ShardedEkfSlam against EkfSlam on the JAX
+   test's world (16 landmarks, heading known, 240 ticks, seed 5), at its
+   tolerances: pose and covariance atol 5e-3, pose block 5e-4, n equal.
+9. TF32 held off: two ekf-10k supersteps with the caller's
+   torch.backends.cuda.matmul.allow_tf32 True and then False give
+   bit-equal states; a bare product at the Pmm pass's shapes under each
+   setting shows whether TF32 changes a result on this card.
+10. The Pmm pass of ekf-10k (Pmm -= W W', in place, W [20000, 200])
+   timed against its bound.
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -92,6 +116,7 @@ share of the bound) and the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -141,6 +166,43 @@ JAX_FS2_ANCHOR_ATE_M = 0.15119374401455354
 #     print(a, np.sqrt(np.mean(np.square(a))))"
 # -> [0.5435689687728882, 0.4998002350330353, 0.2992551028728485]
 JAX_FS2_WEBMAP_ATE_M = 0.46000765042454733
+# The JAX package's EKF1 (the dense EkfSlam, its Runner's default
+# method), 2000 ticks, on the world of its ekf1_webmap bench line
+# (bench.py:475, with load_workload's fallback world), seeds 3-8 as that
+# line runs them (CPU), measured by:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np;
+#     from slam_tpu.config import SlamConfig;
+#     from slam_tpu.maps import synthetic_map;
+#     from slam_tpu.runtime import Runner, compute_metrics;
+#     m = synthetic_map(35, 17, radius=100.0);
+#     c = SlamConfig(SWITCH_HEADING_KNOWN=0);
+#     a = [compute_metrics(Runner(c, m, 'EKF1').run(seed=s, n_ticks=2000))
+#          .ate_rmse for s in (3, 4, 5, 6, 7, 8)];
+#     print(a, np.sqrt(np.mean(np.square(a))))"
+# -> [1.925543189048767, 2.8779795169830322, 0.4271391034126282,
+#     1.9853941202163696, 0.4592718183994293, 1.5500805377960205]
+JAX_EKF_WEBMAP_ATE_M = 1.76674845295672
+# EKF1 on data/dense200 (heading known), 2000 ticks, seeds 3, 4, 5
+# (CPU): the first command with Runner(c, m, 'EKF1') and no particles
+# -> [0.5465115308761597, 0.5760853886604309, 0.5243726372718811]
+JAX_EKF_DENSE200_ATE_M = 0.5493984258951212
+# The JAX package's ekf_10k line (bench.py:247-271): ShardedEkfSlam on a
+# one-device mesh, config5_setup(10_000, capacity=10_000, max_obs=96),
+# 640 ticks, seeds 3, 4, 5 (CPU), measured by:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax;
+#     from jax.sharding import Mesh;
+#     from slam_tpu.parallel.ekf import ShardedEkfSlam;
+#     from slam_tpu.runtime import Runner, compute_metrics;
+#     from slam_tpu.runtime.config5 import config5_setup;
+#     c, m = config5_setup(10_000, capacity=10_000, max_obs=96);
+#     mesh = Mesh(np.array(jax.devices()[:1]), ('lm',));
+#     a = [compute_metrics(Runner(c, m, 'EKF1', estimator=ShardedEkfSlam(
+#          c, m.n_landmarks, mesh)).run(seed=s, n_ticks=640)).ate_rmse
+#          for s in (3, 4, 5)];
+#     print(a, np.sqrt(np.mean(np.square(a))))"
+# (run on the 8 CPU cores of the H100's host machine, 450 s)
+# -> [0.24316486716270447, 0.23860998451709747, 0.20781908929347992]
+JAX_EKF_10K_ATE_M = 0.2304001238485464
 ATE_MARGIN = 2.0
 
 MAP, INI = "data/dense200.mat", "data/dense200.ini"
@@ -204,6 +266,13 @@ P_K2_RAGGED, K_STRIDED = 2 ** 17 + 37, 160
 # A T that is no multiple of the tick loop's unrolling, and a T and P
 # whose ticks take two launches (csrc/predict.cu:kMaxTicks is 256).
 T_ODD, T_LONG, P_LONG = 5, 300, 4133
+# The EKF slices: the ekf1_webmap line's six seeds; ekf_10k's 10k
+# landmarks (capacity 10k, state N = 20,003) over 640 ticks.
+EKF_WEBMAP_SEEDS = (3, 4, 5, 6, 7, 8)
+EKF10K_LANDMARKS, EKF10K_TICKS = 10_000, 640
+# Sharded against dense (tests/test_parallel_ekf.py:38-57): 16
+# landmarks, 240 ticks, seed 5, the JAX test's tolerances.
+TOL_SHARDED_POSE, TOL_SHARDED_COV, TOL_SHARDED_P00 = 5e-3, 5e-3, 5e-4
 
 KERNELS = {
     "K2": ("slam_tpu_torch/csrc/observe.cu",
@@ -1203,6 +1272,237 @@ def check_replay(dev) -> None:
               flush=True)
 
 
+def ekf10k():
+    """The world of the JAX package's ekf_10k line: config #5's map with
+    capacity for all 10k landmarks."""
+    from slam_tpu_torch.runtime.config5 import config5_setup
+    return config5_setup(EKF10K_LANDMARKS, capacity=EKF10K_LANDMARKS,
+                         max_obs=C5_MAX_OBS)
+
+
+def ekf_runner(world, sharded: bool):
+    """A Runner of the EKF as a user builds it, no device named: EKF1,
+    the default method, or ShardedEkfSlam as the ekf_10k line runs it."""
+    from slam_tpu_torch.runtime import Runner
+    cfg, slam_map = world
+    if not sharded:
+        return Runner(cfg, slam_map)
+    from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
+    return Runner(cfg, slam_map, "EKF1",
+                  estimator=ShardedEkfSlam(cfg, slam_map.n_landmarks))
+
+
+@contextlib.contextmanager
+def syncs_raise(runner, T: int):
+    """Run the supersteps under torch.cuda.set_sync_debug_mode("error"),
+    from the first predict to the end of update ``T``: any device-to-host
+    sync in the loop (an .item(), a bool of a tensor, a boolean-mask
+    index, a checked factorization) raises. Yields [updates done]."""
+    import torch
+
+    est = runner.est
+    predict, update = est.predict, est.update
+    done = [0]
+
+    def guarded_predict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        return predict(*args, **kw)
+
+    def guarded_update(*args, **kw):
+        out = update(*args, **kw)
+        done[0] += 1
+        if done[0] == T:
+            torch.cuda.set_sync_debug_mode(0)
+        return out
+
+    est.predict, est.update = guarded_predict, guarded_update
+    try:
+        yield done
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del est.predict, est.update
+
+
+def on_card(dev, runner, tensors) -> list:
+    """Devices of the runner, its estimator and simulator and the given
+    tensors that are not the card ``dev``."""
+    devices = [runner.device, runner.est.device, runner.sim.device,
+               runner.sim.landmarks.device, *(t.device for t in tensors)]
+    return sorted({str(d) for d in devices
+                   if d.type != "cuda" or (d.index or 0) != (dev.index or 0)})
+
+
+def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
+                  window) -> dict:
+    """Phase 7: an EKF slice through Runner, no device named. Each seed
+    runs with syncs raising; none of the nine kernels may launch; the
+    runner, simulator, estimator and final state must be on the card;
+    the RMS ATE over the seeds finite and below twice the JAX anchor.
+    Then one run profiled over ``window`` (warm-up, measured supersteps)
+    gives the device time per superstep."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import compute_metrics
+    from slam_tpu_torch.runtime.profiling import profile_runner
+
+    cfg, _ = world
+    T = ticks // cfg.steps_per_observe
+    ates, rates = [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for seed in seeds:
+        runner = ekf_runner(world, sharded)
+        kernels.reset_launch_counts()
+        with syncs_raise(runner, T) as done:
+            result = runner.run(seed=seed, n_ticks=ticks)
+        counts = kernels.launch_counts()
+        fs = result.final_state
+        m = compute_metrics(result)
+        check(done[0] == T, f"{name}: {done[0]} of {T} updates ran")
+        check(result.host_syncs == 0,
+              f"{name} seed {seed}: {result.host_syncs} host syncs")
+        check(not any(counts.values()),
+              f"{name} seed {seed}: kernels launched {counts}")
+        away = on_card(dev, runner, [t for t in fs
+                                     if isinstance(t, torch.Tensor)])
+        check(not away, f"{name}: with no device named the run is not on "
+              f"{dev}: {away}")
+        check(result.est_pose.shape == (T, 3),
+              f"{name}: est_pose shape {result.est_pose.shape}")
+        check(np.isfinite(result.est_pose).all(), f"{name}: non-finite pose")
+        check(int(fs.n) > 0, f"{name}: no landmark was mapped")
+        check(math.isfinite(m.ate_rmse), f"{name}: non-finite ATE")
+        ates.append(m.ate_rmse)
+        rates.append(m.steps_per_second)
+        print(f"  {name} seed={seed}: {m.summary()} n={int(fs.n)}",
+              flush=True)
+        del result, fs, runner
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seconds = time.perf_counter() - t0
+    rms = float(np.sqrt(np.mean(np.square(ates))))
+    ate_bound = ATE_MARGIN * anchor
+    check(rms < ate_bound, f"{name}: RMS ATE {rms} >= {ate_bound}")
+    prof = profile_runner(ekf_runner(world, sharded), *window,
+                          seed=seeds[0], top=6)
+    check(prof["host_syncs_per_superstep"] == 0
+          and not prof["launches_per_superstep"],
+          f"{name}: profiled window {prof['host_syncs_per_superstep']} "
+          f"syncs, launches {prof['launches_per_superstep']}")
+    summary = dict(seeds=list(seeds), ate_rmse=rms, ates=ates,
+                   steps_per_s=rates, host_syncs_per_superstep=0,
+                   launches=dict.fromkeys(kernels.WRAPPERS, 0),
+                   launches_per_superstep={}, ate_bound=ate_bound,
+                   peak_gib=peak, seconds=seconds, profile=prof)
+    print(f"slice {name}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def check_sharded_vs_dense() -> dict:
+    """Phase 8: the port's ShardedEkfSlam against its EkfSlam on the card,
+    on the JAX test's world (tests/test_parallel_ekf.py:38-57), at its
+    tolerances."""
+    import numpy as np
+
+    from slam_tpu_torch.config import SlamConfig
+    from slam_tpu_torch.maps import synthetic_map
+    from slam_tpu_torch.parallel.ekf import dense_covariance
+
+    slam_map = synthetic_map(16, 12, radius=40.0, seed=7)
+    cfg = SlamConfig(SWITCH_HEADING_KNOWN=1, max_landmarks=16)
+    world = (cfg, slam_map)
+    res_d = ekf_runner(world, sharded=False).run(seed=5, n_ticks=240)
+    res_s = ekf_runner(world, sharded=True).run(seed=5, n_ticks=240)
+    d, s = res_d.final_state, res_s.final_state
+    Pd = d.P.cpu().numpy()
+    Ps = dense_covariance(s).cpu().numpy()
+    errs = dict(pose=float(np.abs(res_s.est_pose - res_d.est_pose).max()),
+                cov=float(np.abs(Ps - Pd).max()),
+                pose_block=float(np.abs(Ps[:3, :3] - Pd[:3, :3]).max()),
+                x=float((s.x - d.x).abs().max()))
+    check(int(s.n) == int(d.n) > 0, f"sharded n {int(s.n)}, dense {int(d.n)}")
+    for key, tol in (("pose", TOL_SHARDED_POSE), ("cov", TOL_SHARDED_COV),
+                     ("pose_block", TOL_SHARDED_P00),
+                     ("x", TOL_SHARDED_POSE)):
+        check(errs[key] <= tol, f"sharded vs dense: {key} {errs[key]} > "
+              f"{tol}")
+    print(f"sharded vs dense EKF, 16 landmarks, 240 ticks, seed 5: "
+          f"{json.dumps(errs)}, n = {int(s.n)}", flush=True)
+    return errs
+
+
+def check_tf32_held_off(dev) -> dict:
+    """Phase 9: two supersteps of ekf-10k with the caller's
+    torch.backends.cuda.matmul.allow_tf32 True, then False: bit-equal
+    states. As a control, one product at the Pmm pass's shapes, outside
+    the estimator, under each setting."""
+    import torch
+
+    from slam_tpu_torch.parallel.ekf import sharded_state_to_numpy
+
+    world = ekf10k()
+    runs = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            result = ekf_runner(world, sharded=True).run(
+                seed=SEEDS[0], n_ticks=2 * world[0].steps_per_observe)
+            runs.append((result.est_pose,
+                         sharded_state_to_numpy(result.final_state)))
+            del result
+        g = torch.Generator(device=dev).manual_seed(0)
+        W = torch.randn((2 * EKF10K_LANDMARKS, 2 * C5_MAX_OBS + 8),
+                        generator=g, device=dev)
+        bare = []
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            bare.append(W[:1024] @ W.T)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+    (pose_t, st_t), (pose_f, st_f) = runs
+    same = np.array_equal(pose_t, pose_f) and all(
+        np.array_equal(st_t[f], st_f[f]) for f in st_t)
+    check(same, "ekf-10k: TF32 allowed by the caller changed the result")
+    control = not torch.equal(bare[0], bare[1])
+    out = dict(bit_equal=same, n=int(st_f["n"]),
+               tf32_changes_a_bare_product=control)
+    print(f"TF32 held off (ekf-10k, 2 supersteps): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def time_pmm_pass(dev) -> dict:
+    """The one pass over Pmm at ekf-10k's shapes, as the update runs it:
+    Pmm -= W W' in place, W [2L, 2K + 8] (the batch update's 2K columns
+    and a superstep's 8 deferred heading terms). Bound: 2 (2L)^2 (2K + 8)
+    operations at the float32 rate, against 2 (2L)^2 x 4 bytes."""
+    import torch
+
+    from slam_tpu_torch.models.ekf import full_f32
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    L2, k = 2 * EKF10K_LANDMARKS, 2 * C5_MAX_OBS + 8
+    g = torch.Generator(device=dev).manual_seed(0)
+    Pmm = torch.zeros((L2, L2), device=dev)
+    W = torch.randn((L2, k), generator=g, device=dev) * 1e-3
+
+    def fn():
+        Pmm.addmm_(W, W.T, alpha=-1.0)
+    with full_f32():
+        ms = min(cuda_ms(fn), cuda_ms(fn))
+        dev_ms = device_ms(fn)
+    ops, nbytes = 2.0 * L2 * L2 * k, 2.0 * 4 * L2 * L2 + 4.0 * L2 * k
+    b_ms, by = bound(nbytes, ops)
+    out = dict(shape=f"[{L2}, {L2}] -= [{L2}, {k}] [{k}, {L2}]", ms=ms,
+               device_ms=dev_ms, ops=ops, bytes=nbytes, bound_ms=b_ms,
+               bound_by=by, share=b_ms / ms)
+    print(f"ekf-10k Pmm pass: {json.dumps(out)}", flush=True)
+    del Pmm, W
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1590,18 @@ def main() -> int:
     check_deferred_vs_eager(dev)
     check_replay(dev)
 
+    ekf_webmap = run_ekf_slice(dev, "ekf-webmap", fs2_webmap(), False,
+                               TICKS, EKF_WEBMAP_SEEDS, JAX_EKF_WEBMAP_ATE_M,
+                               window=(80, 40))
+    ekf_dense200 = run_ekf_slice(dev, "ekf-dense200", dense200(), False,
+                                 TICKS, SEEDS, JAX_EKF_DENSE200_ATE_M,
+                                 window=(150, 40))
+    ekf_10k = run_ekf_slice(dev, "ekf-10k", ekf10k(), True, EKF10K_TICKS,
+                            SEEDS, JAX_EKF_10K_ATE_M, window=(16, 16))
+    check_sharded_vs_dense()
+    check_tf32_held_off(dev)
+    time_pmm_pass(dev)
+
     # Main-path launches of each kernel: the sum of the counts of the
     # phase-4 runs. K1 lies on no path (the JAX package calls it only
     # from tests); every slice checks that it stayed at 0. The error is
@@ -1298,6 +1610,9 @@ def main() -> int:
     slices = dict(zip(("eager-small", "eager-large", "config5",
                        "deferred-large", "fs2-small", "fs2-1m"),
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
+    ekf_slices = {"ekf-webmap": ekf_webmap, "ekf-dense200": ekf_dense200,
+                  "ekf-10k": ekf_10k}
+    slices.update(ekf_slices)
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()
@@ -1311,9 +1626,10 @@ def main() -> int:
         row = dict(name=name, route="cuda", source=KERNELS[name][0],
                    replaces=KERNELS[name][1], launches=launches[name],
                    launches_per_superstep={
-                       sl: s["launches_per_superstep"][name]
-                       for sl, s in slices.items()
-                       if name in s["launches_per_superstep"]},
+                       **{sl: s["launches_per_superstep"][name]
+                          for sl, s in slices.items()
+                          if name in s["launches_per_superstep"]},
+                       **dict.fromkeys(ekf_slices, 0)},
                    max_abs_err=errs[name], **{f: st[f] for f in fields})
         if name == "K2":
             row.update({f: st[f] for f in (

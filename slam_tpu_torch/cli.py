@@ -1,7 +1,8 @@
 """Command-line shell of the port (counterpart: slam_tpu.cli).
 
 Flag-compatible with the JAX package's CLI for the ported slices:
-``-m <map.mat>``, ``-n <name>``, ``-method FASTSLAM1`` or ``FASTSLAM2``,
+``-m <map.mat>``, ``-n <name>``, ``-method EKF1|FASTSLAM1|FASTSLAM2``
+(default EKF1; any other name runs the EKF, as in the JAX package),
 ``-particles``, ``-ticks``, ``-seed``, ``-out``, and any config key as
 ``-KEY value``. The map's ``<map>.ini`` is loaded when it exists. The run
 takes place on the card (``cuda``); without one the command fails with
@@ -23,7 +24,7 @@ slam_tpu_torch backend — landmark SLAM in PyTorch / CUDA
 Usage: python -m slam_tpu_torch [options]
     -m <file>        map file (.mat text format)
     -n <name>        simulation name (report directory)
-    -method <name>   FASTSLAM1 | FASTSLAM2 (EKF1 is not ported yet)
+    -method <name>   EKF1 | FASTSLAM1 | FASTSLAM2
     -particles <N>   particle count
     -ticks <N>       max control ticks
     -seed <N>        PRNG seed
@@ -59,7 +60,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"warning: mode {mode!r} not supported; using waypoints",
               file=sys.stderr)
     sim_name = flags.pop("n", "simulation")
-    method = flags.pop("method", "FASTSLAM1")
+    method = flags.pop("method", "EKF1")
     n_particles = flags.pop("particles", None)
     n_ticks = flags.pop("ticks", None)
     seed = int(flags.pop("seed", 0))

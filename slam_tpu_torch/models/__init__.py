@@ -1,7 +1,21 @@
-"""Estimators of the port. FastSLAM 1.0 (eager and with deferred
-resampling) and FastSLAM 2.0 are ported; the others are queued in
-ROADMAP.md (Queue 1)."""
+"""Estimators of the port: EKF-SLAM, FastSLAM 1.0 (eager and with
+deferred resampling) and FastSLAM 2.0 (counterpart:
+slam_tpu.models)."""
 
+from slam_tpu_torch.models.ekf import (
+    EkfSlam,
+    EKFState,
+    ekf_augment,
+    ekf_batch_update,
+    ekf_data_associate,
+    ekf_data_associate_known,
+    ekf_init,
+    ekf_observe_heading,
+    ekf_predict,
+    ekf_state_from_numpy,
+    ekf_state_to_numpy,
+    ekf_step,
+)
 from slam_tpu_torch.models.fastslam1 import FastSlam1, FastSlam1Deferred
 from slam_tpu_torch.models.fastslam2 import FastSlam2
 from slam_tpu_torch.models.particles import (
@@ -16,23 +30,47 @@ from slam_tpu_torch.models.particles import (
     state_to_numpy,
 )
 
-ESTIMATORS = {"FASTSLAM1": FastSlam1, "FASTSLAM2": FastSlam2}
+ESTIMATORS = {
+    "EKF1": EkfSlam,
+    "EKF": EkfSlam,
+    "FASTSLAM1": FastSlam1,
+    "FASTSLAM2": FastSlam2,
+}
 
 
 def make_estimator(method: str, config, n_map_landmarks: int, device=None):
-    """Method-string dispatch (the reference's ``-method``); the
-    estimator runs on the card unless ``device`` names another."""
-    cls = ESTIMATORS.get(method.upper())
-    if cls is None:
-        raise NotImplementedError(
-            f"method {method!r} is not ported to slam_tpu_torch yet; "
-            "ROADMAP.md (Queue 1) lists the order of the remaining "
-            "estimators")
+    """Method-string dispatch (the reference's ``-method``: FASTSLAM1,
+    FASTSLAM2, anything else the EKF); the estimator runs on the card
+    unless ``device`` names another."""
+    cls = ESTIMATORS.get(method.upper(), EkfSlam)
     return cls(config, n_map_landmarks, device=device)
 
 
-__all__ = ["ESTIMATORS", "DeferredState", "FastSlam1", "FastSlam1Deferred",
-           "FastSlam2", "ParticleState", "deferred_state_from_numpy",
-           "deferred_state_to_numpy", "estimate_position",
-           "gather_particles", "init_particles", "make_estimator",
-           "state_from_numpy", "state_to_numpy"]
+__all__ = [
+    "EkfSlam",
+    "EKFState",
+    "ekf_init",
+    "ekf_predict",
+    "ekf_observe_heading",
+    "ekf_data_associate",
+    "ekf_data_associate_known",
+    "ekf_batch_update",
+    "ekf_augment",
+    "ekf_step",
+    "ekf_state_from_numpy",
+    "ekf_state_to_numpy",
+    "ParticleState",
+    "init_particles",
+    "estimate_position",
+    "gather_particles",
+    "FastSlam1",
+    "FastSlam1Deferred",
+    "FastSlam2",
+    "DeferredState",
+    "deferred_state_from_numpy",
+    "deferred_state_to_numpy",
+    "state_from_numpy",
+    "state_to_numpy",
+    "ESTIMATORS",
+    "make_estimator",
+]

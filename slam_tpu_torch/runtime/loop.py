@@ -2,16 +2,19 @@
 slam_tpu.runtime.loop, whose superstep is one ``lax.scan`` body).
 
 A superstep is ``steps_per_observe`` control ticks — truth step, noisy
-controls, particle predict, dead-reckoning odometry — then one
-observation and the estimator update. An estimator with
-``predict_multi`` (``FastSlam1Deferred``, and ``FastSlam2`` with the
-heading unknown) at a particle count that is a multiple of 1024
-predicts all the ticks of a superstep in one call after them, as the
-JAX runner's ``_superstep_multi`` does. Everything stays on the run's
-device; the per-superstep traces are written into preallocated device
-buffers and copied to the host once, at the end.
-The only host syncs inside the loop are the estimator's gates
-(``rbpf.host_bool``), counted in ``RunResult.host_syncs``.
+controls, the estimator's predict, dead-reckoning odometry — then one
+observation and the estimator update. The heading each predict gets is
+the noisy IMU heading for an EKF (``IS_EKF``), the true heading for a
+particle filter. A particle filter with ``predict_multi``
+(``FastSlam1Deferred``, and ``FastSlam2`` with the heading unknown) at
+a particle count that is a multiple of 1024 predicts all the ticks of a
+superstep in one call after them, as the JAX runner's
+``_superstep_multi`` does; an EKF never does. Everything stays on the
+run's device; the per-superstep traces are written into preallocated
+device buffers and copied to the host once, at the end.
+The only host syncs inside the loop are the particle filters' gates
+(``rbpf.host_bool``), counted in ``RunResult.host_syncs``; an EKF has
+none.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ class Runner:
     then takes place on its device unless ``device`` says otherwise."""
 
     def __init__(self, config: SlamConfig, slam_map: SlamMap,
-                 method: str = "FASTSLAM1", n_particles: int | None = None,
+                 method: str = "EKF1", n_particles: int | None = None,
                  device=None, estimator=None):
         self.config = config
         self.map = slam_map
@@ -108,13 +111,18 @@ class Runner:
         return sim_state, controls, dr
 
     def _superstep(self, sim_state, est_state, gen):
-        """The control ticks of a superstep, each with its particle
-        predict: (sim state, estimator state, odometry)."""
+        """The control ticks of a superstep, each with its predict:
+        (sim state, estimator state, odometry)."""
+        ekf = getattr(self.est, "IS_EKF", False)
         dr = torch.zeros(3, dtype=torch.float32, device=self.device)
         for _ in range(self.config.steps_per_observe):
             sim_state, controls, dr = self._control_tick(sim_state, dr)
-            # FastSLAM observes the TRUE heading per tick.
-            phi = sim_state.vehicle.pose[2]
+            # An EKF observes the noisy IMU heading, FastSLAM the true
+            # one.
+            if ekf:
+                sim_state, phi = self.sim.heading_measurement(sim_state)
+            else:
+                phi = sim_state.vehicle.pose[2]
             est_state = self.est.predict(est_state, gen, controls.v_noisy,
                                          controls.g_noisy, phi)
         return sim_state, est_state, dr
@@ -148,9 +156,10 @@ class Runner:
 
         sim_state = self.sim.init(seed=seed or cfg.SWITCH_SEED_RANDOM)
         est_state = self.est.init(self.n_particles)
-        P = getattr(est_state, "ps", est_state).n_particles
+        P = getattr(getattr(est_state, "ps", est_state), "n_particles", 0)
         superstep = (self._superstep_multi
                      if hasattr(self.est, "predict_multi")
+                     and not getattr(self.est, "IS_EKF", False)
                      and P % MULTI_ALIGN == 0 else self._superstep)
         gen = self.sim.make_generator(seed + 1)
         K = self.sim.max_obs

@@ -12,10 +12,16 @@ seed 3:
   ``FastSlam1Deferred`` at 2^20 particles, capacity 192, at most 96
   observations;
 - ``eager-small``: FastSLAM 1 on data/dense200 at P = 100 (K2, G1);
-- ``fs2-small``: FastSLAM 2 on data/dense200 at P = 100 (K3, K2, G1).
+- ``fs2-small``: FastSLAM 2 on data/dense200 at P = 100 (K3, K2, G1);
+- ``ekf-webmap``: EKF1 (the dense ``EkfSlam``) on the world of the JAX
+  package's ``ekf1_webmap`` line, heading unknown;
+- ``ekf-10k``: the landmark-block ``ShardedEkfSlam`` on one card at 10k
+  landmarks (``config5_setup(10_000, capacity=10_000, max_obs=96)``),
+  the JAX package's ``ekf_10k`` line.
 
 A run goes ``--warm`` supersteps (dense200's vehicle first sees a
-landmark at superstep 137, so those slices warm up for 150), then
+landmark at superstep 137, so those slices warm up for 150; the
+webmap's at superstep 63, so 80), then
 measures a window of ``--supersteps`` more, between two device syncs.
 One run takes the window under the profiler: per superstep the device
 time, the device events (kernels and copies) and the time of each
@@ -68,10 +74,13 @@ def device_ms(fn, iters: int = 10):
     return us / iters / 1e3 if us > 0 else None
 
 
-SLICES = ("config5", "eager-small", "fs2-small")
+SLICES = ("config5", "eager-small", "fs2-small", "ekf-webmap", "ekf-10k")
 # (warm-up supersteps, measured supersteps) by default, per slice.
 WINDOWS = {"config5": (16, 16), "eager-small": (150, 40),
-           "fs2-small": (150, 40)}
+           "fs2-small": (150, 40), "ekf-webmap": (80, 40),
+           "ekf-10k": (16, 16)}
+# Landmarks (and capacity) of the ekf-10k slice.
+EKF10K_LANDMARKS = 10_000
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                     os.pardir, "data")
 
@@ -87,8 +96,19 @@ def slice_runner(name: str, device):
         return Runner(cfg, slam_map, "FASTSLAM1", n_particles=2 ** 20,
                       estimator=FastSlam1Deferred(
                           cfg, slam_map.n_landmarks, device=device))
+    if name == "ekf-10k":
+        from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
+        from slam_tpu_torch.runtime.config5 import config5_setup
+        cfg, slam_map = config5_setup(EKF10K_LANDMARKS,
+                                      capacity=EKF10K_LANDMARKS, max_obs=96)
+        return Runner(cfg, slam_map, "EKF1", estimator=ShardedEkfSlam(
+            cfg, slam_map.n_landmarks, device=device))
     from slam_tpu_torch.config import SlamConfig
-    from slam_tpu_torch.maps import read_map_file
+    from slam_tpu_torch.maps import read_map_file, synthetic_map
+    if name == "ekf-webmap":
+        return Runner(SlamConfig(SWITCH_HEADING_KNOWN=0),
+                      synthetic_map(35, 17, radius=100.0), "EKF1",
+                      device=device)
     cfg = SlamConfig.from_ini(os.path.join(DATA, "dense200.ini"))
     slam_map = read_map_file(os.path.join(DATA, "dense200.mat"))
     method = {"eager-small": "FASTSLAM1", "fs2-small": "FASTSLAM2"}[name]
@@ -150,11 +170,17 @@ def window_run(runner, seed: int, warm: int, n: int, prof=None) -> dict:
 
 def profile_slice(name: str, warm: int, n: int, seed: int = 3,
                   top: int = 12) -> dict:
-    """Per-superstep device time, device events and kernel table of a
-    slice over a window of ``n`` supersteps after ``warm``, and the
-    loop wall, host syncs and launches per superstep of two unprofiled
-    runs of the same window."""
+    """``profile_runner`` of a slice's runner on the card."""
     runner = slice_runner(name, torch.device("cuda", 0))
+    return dict(slice=name, **profile_runner(runner, warm, n, seed, top))
+
+
+def profile_runner(runner, warm: int, n: int, seed: int = 3,
+                   top: int = 12) -> dict:
+    """Per-superstep device time, device events and kernel table of a
+    run over a window of ``n`` supersteps after ``warm``, and the loop
+    wall, host syncs and launches per superstep of two unprofiled runs
+    of the same window; the peak device memory of those two."""
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window_run(runner, seed, warm, n, prof)
     per = {key: (us / n / 1e3, calls / n, us / 1e3 / max(calls, 1))
@@ -165,7 +191,7 @@ def profile_slice(name: str, warm: int, n: int, seed: int = 3,
     device_time = sum(v[0] for v in per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
     return dict(
-        slice=name, warm=warm, supersteps=n, seed=seed,
+        warm=warm, supersteps=n, seed=seed,
         device_ms_per_superstep=device_time,
         events_per_superstep=sum(v[1] for v in per.values()),
         loop_wall_ms_per_superstep=walls,

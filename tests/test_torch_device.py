@@ -4,7 +4,7 @@ card, and nowhere when there is none.
 ``default_device(None)`` is ``cuda`` and raises without a card; an
 explicit device is taken as given. ``Runner``, ``Simulator``, the
 estimators, ``make_estimator``, the CLI and the functions that make a
-particle state or carry one over from numpy go through it, so on a
+particle or EKF state or carry one over from numpy go through it, so on a
 machine without a card each of them fails with the same message unless
 the caller asks for the CPU. The card's absence is simulated, so these
 tests say the same on a machine that has one.
@@ -20,13 +20,15 @@ import torch
 import slam_tpu_torch
 from slam_tpu_torch import SlamConfig, default_device, synthetic_map
 from slam_tpu_torch.cli import main
-from slam_tpu_torch.models import particles
+from slam_tpu_torch.models import ekf, particles
 from slam_tpu_torch.models import (
+    EkfSlam,
     FastSlam1,
     FastSlam1Deferred,
     FastSlam2,
     make_estimator,
 )
+from slam_tpu_torch.parallel import ekf as pekf
 from slam_tpu_torch.runtime import Runner
 from slam_tpu_torch.sim.simulator import Simulator
 
@@ -85,6 +87,13 @@ ENTRY_POINTS = {
         "FASTSLAM1", cfg, m.n_landmarks, **kw),
     "make_estimator-FASTSLAM2": lambda cfg, m, **kw: make_estimator(
         "FASTSLAM2", cfg, m.n_landmarks, **kw),
+    "Runner-FASTSLAM1": lambda cfg, m, **kw: Runner(cfg, m, "FASTSLAM1",
+                                                    **kw),
+    "EkfSlam": lambda cfg, m, **kw: EkfSlam(cfg, m.n_landmarks, **kw),
+    "ShardedEkfSlam": lambda cfg, m, **kw: pekf.ShardedEkfSlam(
+        cfg, m.n_landmarks, **kw),
+    "make_estimator-EKF1": lambda cfg, m, **kw: make_estimator(
+        "EKF1", cfg, m.n_landmarks, **kw),
 }
 
 
@@ -118,7 +127,12 @@ def test_cpu_run_and_its_tick_estimate_stay_on_the_cpu(no_card, world):
     assert runner.estimate_run_ticks(cap=64) % cfg.steps_per_observe == 0
     result = runner.run(seed=1, n_ticks=2 * cfg.steps_per_observe)
     assert np.isfinite(result.est_pose).all()
-    assert result.final_state.xv.device == torch.device("cpu")
+    assert {t.device for t in _tensors(result.final_state)} == {
+        torch.device("cpu")}
+
+
+def _tensors(state):
+    return [t for t in state if isinstance(t, torch.Tensor)]
 
 
 def _state_arrays():
@@ -133,6 +147,13 @@ STATE_MAKERS = {
     "deferred_state_from_numpy": lambda **kw: (
         particles.deferred_state_from_numpy(
             {"ps": _state_arrays(), "S": np.arange(1, 5)}, **kw).ps),
+    "ekf_init": lambda **kw: ekf.ekf_init(3, 5, **kw),
+    "ekf_state_from_numpy": lambda **kw: ekf.ekf_state_from_numpy(
+        ekf.ekf_state_to_numpy(ekf.ekf_init(3, 5, device="cpu")), **kw),
+    "sharded_ekf_init": lambda **kw: pekf.sharded_ekf_init(3, 5, **kw),
+    "sharded_state_from_numpy": lambda **kw: pekf.sharded_state_from_numpy(
+        pekf.sharded_state_to_numpy(pekf.sharded_ekf_init(
+            3, 5, device="cpu")), **kw),
 }
 
 
@@ -143,7 +164,7 @@ def test_state_without_a_device_refuses_without_a_card(no_card, name):
     with pytest.raises(RuntimeError, match=NO_CARD):
         STATE_MAKERS[name]()
     state = STATE_MAKERS[name](device="cpu")
-    assert all(t.device == torch.device("cpu") for t in state)
+    assert {t.device for t in _tensors(state)} == {torch.device("cpu")}
 
 
 def test_cli_without_a_device_fails_without_a_card(no_card, tmp_path,
@@ -188,8 +209,9 @@ def cuda():
 @pytest.mark.cuda
 def test_entry_points_default_to_the_card(cuda, world):
     cfg, m = world
-    runner = Runner(cfg, m, n_particles=8)
-    assert runner.device.type == runner.est.device.type == "cuda"
-    assert runner.sim.landmarks.is_cuda
-    result = runner.run(seed=1, n_ticks=2 * cfg.steps_per_observe)
-    assert result.final_state.xv.is_cuda and result.final_state.lm.is_cuda
+    for method in ("EKF1", "FASTSLAM1"):
+        runner = Runner(cfg, m, method, n_particles=8)
+        assert runner.device.type == runner.est.device.type == "cuda"
+        assert runner.sim.landmarks.is_cuda
+        result = runner.run(seed=1, n_ticks=2 * cfg.steps_per_observe)
+        assert all(t.is_cuda for t in _tensors(result.final_state))

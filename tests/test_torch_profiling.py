@@ -47,6 +47,29 @@ def test_slices_build_their_runners():
     assert set(profiling.WINDOWS) == set(profiling.SLICES)
 
 
+@pytest.mark.parametrize("name", ["ekf-webmap", "ekf-10k"])
+def test_ekf_slices_run_their_window(no_device_sync, monkeypatch, name):
+    """The EKF slices at a tiny size on the CPU (ekf-10k cut to 300
+    landmarks): the estimator the JAX package's line runs, and a window
+    with no host sync and no kernel launch."""
+    from slam_tpu_torch.models import EkfSlam
+    from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
+
+    monkeypatch.setattr(profiling, "EKF10K_LANDMARKS", 300)
+    runner = profiling.slice_runner(name, torch.device("cpu"))
+    assert runner.method == "EKF1"
+    if name == "ekf-10k":
+        assert type(runner.est) is ShardedEkfSlam
+        assert runner.est.capacity == runner.map.n_landmarks == 300
+        assert runner.config.SWITCH_HEADING_KNOWN
+    else:
+        assert type(runner.est) is EkfSlam
+        assert runner.map.n_landmarks == 35
+        assert not runner.config.SWITCH_HEADING_KNOWN
+    out = profiling.window_run(runner, seed=3, warm=2, n=3)
+    assert out["host_syncs"] == 0.0 and out["launches"] == {}
+
+
 def test_main_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
