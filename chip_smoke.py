@@ -18,8 +18,9 @@ Phases, in order; any failure raises and exits non-zero:
    ragged P; K4 (K=15, L=200,
    P=2^17; and slice (f)'s K=9, L=40, P=2^20), G1 (P=100) and G2
    (P=2^17; and P=2^20 at L=40), over the 10 + 5L rows of the resample
-   gather; K5 at config #5's shapes (K=96, L=192, P=2^20)
-   with a fired resample, and on edge cases at P=2^16 (all columns from
+   gather; K4 and K5 at config #5's shapes (K=96, L=192, P=2^20; K5
+   with a fired resample) and at the full-10k run's (K=96, L=10,000,
+   P=32,768), and K5 on edge cases at P=2^16 (all columns from
    one ancestor; the identity but for one tile; a tile whose ancestor
    run is wider than the staging width; L=40; no matched observation;
    one landmark observed twice); K6 and K6b with the noise on and off
@@ -56,9 +57,15 @@ Phases, in order; any failure raises and exits non-zero:
        once per superstep and G1, and not K4 or G2; one host sync per
        superstep (the resample gate);
    (b) the same at P = 131072: K4 and G2, and not K2 or G1;
-   (c) config #5's filter, FastSlam1Deferred at P = 2^20 with capacity
-       192, 256 ticks, seeds 3, 4, 5: K6 once per superstep, K5 and G2
-       at least once per run, one host sync per superstep;
+   (c) BASELINE config #5 composed, through run_config5 (no device
+       named): FastSlam1Deferred at P = 2^20 with capacity 192, 32
+       supersteps, seeds 3, 4, 5, then problem_from_run and
+       solve_ba_sharded: K6 once per superstep, K5 or K4 once per
+       superstep, K5 and G2 at least once per run, one host sync (the
+       gate) per superstep; the filter's 3-seed RMS ATE below twice
+       JAX_CONFIG5_ATE_M, the refined one below twice
+       JAX_CONFIG5_REFINED_ATE_M, and on each seed the refined ATE below
+       max(2 ATE_filter, 0.15);
    (d) FastSlam1Deferred on dense200 at P = 131072, 2000 ticks, seeds 3,
        4, 5: K5 and K6, and not K2 or G1;
    then FastSLAM 2 through Runner with -method FASTSLAM2:
@@ -69,6 +76,10 @@ Phases, in order; any failure raises and exits non-zero:
        synthetic_map(35, 17, radius=100)), P = 2^20, 1024 ticks, seeds
        3, 4, 5: K6b once per superstep, K3, K4 and G2, and not K2, G1,
        K5 or K6; one host sync per superstep.
+   then config #5's two other bench points, seed 3 each, with the same
+   launches and per-seed check: (c') cap256, P = 2^20, capacity 256,
+   16 supersteps; (c'') full-10k, P = 32,768, capacity 10,000 (6.6 GB
+   of landmark planes per buffer), 16 supersteps.
    No slice may launch K1, which lies on no path. No run names a
    device: the runner, the simulator, the estimator and the final state
    must be on the card by default. Each 3-seed RMS ATE
@@ -107,6 +118,16 @@ Phases, in order; any failure raises and exits non-zero:
    setting shows whether TF32 changes a result on this card.
 10. The Pmm pass of ekf-10k (Pmm -= W W', in place, W [20000, 200])
    timed against its bound.
+11. ba-10k: bundle adjustment alone, solve_ba_device (30 iterations) on
+   make_ba_problem(256, 10_000), and the same solve from the truth (the
+   MAP floor): the error must fall below 0.2 of the dead-reckoned one
+   and below max(1.25 floor, 0.05) (bench.py's two checks), and lie
+   within 5 % of the JAX package's on the same problem
+   (JAX_BA10K_ERR_M); a second solve must replay it bit for bit; none
+   of the nine kernels may launch. Prints ms per LM trial (CUDA events
+   and profiler device time), trials, host reads per solve, peak device
+   memory, and the Schur product W All^-1 W' ([768, 20000] x [20000,
+   768]) timed against its bound.
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -203,17 +224,41 @@ JAX_EKF_DENSE200_ATE_M = 0.5493984258951212
 # (run on the 8 CPU cores of the H100's host machine, 450 s)
 # -> [0.24316486716270447, 0.23860998451709747, 0.20781908929347992]
 JAX_EKF_10K_ATE_M = 0.2304001238485464
+# The JAX package's composed config #5 on the CPU, as bench_config5 runs
+# it but at 1024 particles (bench.py:403-430): RMS over seeds 3, 4, 5 of
+# run_config5(n_particles=1024, capacity=192, n_supersteps=32,
+# seed=s).ate_refined (JAX_PLATFORMS=cpu, the 8 CPU cores of the H100's
+# host machine; its ate_filter RMS: 0.045890827499616364)
+# -> [0.021920856088399887, 0.10794076323509216, 0.050334397703409195]
+JAX_CONFIG5_REFINED_ATE_M = 0.06991729373954994
+# The JAX package's ba_10k line (bench.py:347-400) on the CPU: the mean
+# position error of solve_ba_device(prob, iters=30) on
+# make_ba_problem(256, 10_000), measured by:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax.numpy as jnp;
+#     from bench import make_ba_problem;
+#     from slam_tpu.posegraph import solve_ba_device;
+#     prob, poses, poses0, lms = make_ba_problem(256, 10_000);
+#     p, _ = solve_ba_device(prob, iters=30);
+#     print(float(jnp.linalg.norm(p[:, :2] - poses[:, :2], axis=1).mean()))"
+# (the host machine's CPU; 35 trials, 18 accepted; dead-reckoned error
+# 29.436847686767578 m, the MAP floor 1.8217651844024658 m)
+JAX_BA10K_ERR_M = 1.7418155670166016
 ATE_MARGIN = 2.0
+BA_ERR_MARGIN = 0.05
 
 MAP, INI = "data/dense200.mat", "data/dense200.ini"
 TICKS, SEEDS = 2000, (3, 4, 5)
 P_SMALL, P_LARGE = 100, 131072
 K_OBS, CAPACITY = 15, 200
-# Config #5's filter stage on one card, as the JAX package's
-# bench_config5 runs it: 10k landmarks, capacity 192, at most 96
-# observations, 2^20 particles, 32 supersteps.
+# Config #5 on one card, as the JAX package's bench_config5 runs it:
+# 10k landmarks, capacity 192, at most 96 observations, 2^20 particles,
+# 32 supersteps; and its cap256 and full-10k points (bench.py:499-507).
 C5_LANDMARKS, C5_CAPACITY, C5_MAX_OBS = 10_000, 192, 96
-C5_P, C5_TICKS = 2 ** 20, 256
+C5_P, C5_SUPERSTEPS = 2 ** 20, 32
+C5_POINTS = (("config5-cap256", 2 ** 20, 256, 16),
+             ("config5-full-10k", 32_768, 10_000, 16))
+# The ba_10k problem (keyframes, landmarks) and its iterations.
+BA10K_SHAPE, BA10K_ITERS = (256, 10_000), 30
 T_PREDICT = 8
 # The fastslam2_1m world: heading unknown, 35 landmarks (capacity 40),
 # 2^20 particles. Its vehicle first sees a landmark after 63
@@ -391,6 +436,15 @@ def check_kernels(dev) -> dict:
 
     results.update(check_gathers(dev, g, fs2_L))
     results["K5"] = check_k5(dev, rng, g)
+    # K4 and K5 at the full-10k run's shapes (phase 4, c''): 10k slots,
+    # 32,768 particles, 6.6 GB of landmark planes.
+    _, P10k, L10k, _ = C5_POINTS[1]
+    full = dict(n_map=C5_LANDMARKS, live=300, n_match=70, n_new=20)
+    results["K4 full-10k"] = check_k4(dev, rng, g, P10k, L10k, C5_MAX_OBS,
+                                      **full)
+    torch.cuda.empty_cache()
+    results["K5 full-10k"] = check_k5_fired(dev, rng, g, P10k, L10k,
+                                            C5_MAX_OBS, full)
     # K6's main path draws (FastSLAM 1 forces the noise on); K6b's does
     # not (SWITCH_PREDICT_NOISE defaults to 0).
     results["K6"] = check_predict(dev, g, "K6", C5_P, fs2=False,
@@ -724,25 +778,23 @@ def check_k5_case(name, state, batch, S, logw, twin=True) -> float:
     return err
 
 
-def check_k5(dev, rng, g) -> dict:
-    """K5 at config #5's shapes: 150 live landmarks of 192 slots, 70
-    matched observations, 20 new ones, 6 masked (K = 96), and the
-    offspring bounds of a fired resample; then the edge cases at
-    P = 2^16."""
+def check_k5_fired(dev, rng, g, P, L, K, inputs) -> dict:
+    """K5 on the offspring bounds of a fired resample at K observations,
+    L slots, P particles (``inputs``: update_inputs' counts): bit-equal
+    to G2 + K4 and across its branches, within TOL of its twin, and
+    timed, with its bytes and operations."""
     import torch
 
     from slam_tpu_torch.ops.kernels import kernels as kk
     from slam_tpu_torch.runtime.profiling import device_ms
 
-    P, L, K = C5_P, C5_CAPACITY, C5_MAX_OBS
-    c5 = dict(n_map=400, live=150, n_match=70, n_new=20)
-    state, batch = update_inputs(dev, rng, g, P, L, K, **c5)
+    state, batch = update_inputs(dev, rng, g, P, L, K, **inputs)
     logw = torch.randn(P, generator=g, device=dev)
     S = k5_bounds(dev, rng, g, P, "fired")
     check(not torch.equal(S, torch.arange(1, P + 1, device=dev,
                                           dtype=torch.int32)),
           "K5 input: the bounds are the identity")
-    err = check_k5_case("config #5", state, batch, S, logw)
+    err = check_k5_case(f"K={K} L={L} P={P}", state, batch, S, logw)
     layout = k5_layout(S)
 
     def args(lw):
@@ -758,14 +810,30 @@ def check_k5(dev, rng, g) -> dict:
     # ancestors but those of the new slots; writes the weight and all
     # 5 L rows.
     nbytes = (4 * P * (3 + 1 + 1 + 5 * L + 1)
-              + 4 * 5 * (L - c5["n_new"]) * layout["distinct"] + 18 * K)
+              + 4 * 5 * (L - inputs["n_new"]) * layout["distinct"] + 18 * K)
     print(f"kernel K5 (K={K} L={L} P={P}): distinct ancestors "
           f"{layout['distinct']}, sectors holding one "
           f"{layout['live_sectors']:.4f}, staged tiles "
           f"{layout['staged_tiles']:.4f}; direct branch "
           f"{times['direct_ms']:.4f} ms", flush=True)
-    del state
+    del state, batch
     torch.cuda.empty_cache()
+    return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
+                ops=P * (inputs["n_match"] * OPS_MATCH
+                         + inputs["n_new"] * OPS_INIT), **layout, **times)
+
+
+def check_k5(dev, rng, g) -> dict:
+    """K5 at config #5's shapes: 150 live landmarks of 192 slots, 70
+    matched observations, 20 new ones, 6 masked (K = 96), and the
+    offspring bounds of a fired resample; then the edge cases at
+    P = 2^16."""
+    import torch
+
+    L, K = C5_CAPACITY, C5_MAX_OBS
+    c5 = dict(n_map=400, live=150, n_match=70, n_new=20)
+    out = check_k5_fired(dev, rng, g, C5_P, L, K, c5)
+    err = out["max_abs_err"]
 
     # (name, L, K, inputs, bounds, one landmark observed twice)
     cases = (("one ancestor", L, K, c5, "one ancestor", False),
@@ -792,9 +860,7 @@ def check_k5(dev, rng, g) -> dict:
               f"bit-equal to G2 + K4 and across branches"
               f"{'' if twice else ', within TOL of the twin'}; "
               f"staged tiles {lay['staged_tiles']:.4f}", flush=True)
-    return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
-                ops=P * (c5["n_match"] * OPS_MATCH + c5["n_new"] * OPS_INIT),
-                **layout, **times)
+    return dict(out, max_abs_err=err)
 
 
 def predict_inputs(dev, g, P, T, fs2: bool):
@@ -1107,12 +1173,6 @@ def dense200():
     return SlamConfig.from_ini(INI), read_map_file(MAP)
 
 
-def config5():
-    from slam_tpu_torch.runtime.config5 import config5_setup
-    return config5_setup(C5_LANDMARKS, capacity=C5_CAPACITY,
-                         max_obs=C5_MAX_OBS)
-
-
 def fs2_webmap():
     """The world of the JAX package's fastslam2_1m line without the
     reference data (bench.py:load_workload): heading unknown."""
@@ -1228,6 +1288,176 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
                    seconds=time.perf_counter() - t0)
     print(f"slice {name}: {json.dumps(summary)}", flush=True)
     return summary
+
+
+def run_config5_slice(dev, name, P, capacity, n_supersteps, seeds,
+                      filter_anchor=None, refined_anchor=None,
+                      on=()) -> dict:
+    """Phase 4, BASELINE config #5 composed: run_config5 per seed, no
+    device named. Checks each result as tests/test_config5.py does
+    (keyframes, map, finite errors, the refinement within max(2
+    ATE_filter, 0.15), a BA iteration), the kernels each run launched
+    (reset before it, read after it: K6 and one of K5 or K4 per
+    superstep, the kernels in ``on`` at least once, none of the others)
+    and its host syncs (the gate, once per superstep; BA's reads are
+    its own), the peak device memory (the filter's state lies on the
+    card), and the 3-seed RMS ATEs against twice the JAX anchors given."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.models import rbpf
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime.config5 import run_config5
+
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
+    results = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for seed in seeds:
+        kernels.reset_launch_counts()
+        syncs = rbpf.host_bool.count
+        r = run_config5(n_particles=P, capacity=capacity,
+                        n_supersteps=n_supersteps, seed=seed)
+        syncs = rbpf.host_bool.count - syncs
+        counts = kernels.launch_counts()
+        check(r.n_keyframes == n_supersteps and r.n_landmarks_map
+              == C5_LANDMARKS and r.n_landmarks_observed > 50,
+              f"{name} seed {seed}: {r}")
+        check(all(math.isfinite(v) for v in (r.ate_filter, r.ate_refined,
+                                             r.ba_seconds)),
+              f"{name} seed {seed}: non-finite result {r}")
+        check(r.ate_refined < max(2.0 * r.ate_filter, 0.15),
+              f"{name} seed {seed}: refined ATE {r.ate_refined} against "
+              f"the filter's {r.ate_filter}")
+        check(r.ba_iters >= 1, f"{name} seed {seed}: no BA iteration")
+        check(counts["K6"] == n_supersteps
+              and counts["K5"] + counts["K4"] == n_supersteps,
+              f"{name} seed {seed}: launches {counts} in {n_supersteps} "
+              "supersteps")
+        for k in on:
+            check(counts[k] > 0, f"{name} seed {seed}: {k} was never "
+                  f"launched {counts}")
+        for k in ("K2", "G1", "K3", "K6b", "K1"):
+            check(counts[k] == 0, f"{name} seed {seed}: {k} should not "
+                  f"run {counts}")
+        check(syncs == n_supersteps, f"{name} seed {seed}: {syncs} gate "
+              f"syncs in {n_supersteps} supersteps")
+        total = {k: total[k] + counts[k] for k in total}
+        results.append(r._asdict())
+        print(f"  {name} P={P} capacity={capacity} seed={seed}: "
+              f"{json.dumps(r._asdict())} {counts}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # 5 float32 planes per (particle, slot), on the card.
+    check(peak * 2 ** 30 > 20 * P * capacity,
+          f"{name}: peak device memory {peak} GiB; the run was not on "
+          "the card")
+
+    def rms(key):
+        return float(np.sqrt(np.mean([r[key] ** 2 for r in results])))
+    summary = dict(
+        P=P, capacity=capacity, supersteps=n_supersteps, seeds=list(seeds),
+        ate_filter=rms("ate_filter"), ate_refined=rms("ate_refined"),
+        results=results, launches=total,
+        launches_per_superstep={k: n / (len(seeds) * n_supersteps)
+                                for k, n in total.items() if n},
+        host_syncs_per_superstep=1.0, peak_gib=peak,
+        seconds=time.perf_counter() - t0)
+    for key, anchor in (("ate_filter", filter_anchor),
+                        ("ate_refined", refined_anchor)):
+        if anchor is not None:
+            summary[f"{key}_bound"] = ATE_MARGIN * anchor
+            check(summary[key] < ATE_MARGIN * anchor,
+                  f"{name}: RMS {key} {summary[key]} >= "
+                  f"{ATE_MARGIN * anchor}")
+    print(f"slice {name}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def check_ba_10k(dev, card: str) -> dict:
+    """Phase 11: the ba_10k line on the card. solve_ba_device on
+    make_ba_problem(256, 10_000), no device named, then from the truth
+    (the MAP floor); bench.py's quality checks, the error within
+    BA_ERR_MARGIN of the JAX package's, a bit-identical replay, no
+    kernel launched; the profile of a solve (profiling.profile_ba) and
+    the Schur product against its bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.models.ekf import full_f32
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.posegraph import solve_ba_device
+    from slam_tpu_torch.posegraph.synthetic import make_ba_problem
+    from slam_tpu_torch.runtime.profiling import (
+        ba_products,
+        device_ms,
+        profile_ba,
+    )
+
+    t0 = time.perf_counter()
+    prob, poses, poses0, lms = make_ba_problem(*BA10K_SHAPE)
+    check(prob.poses0.device.type == "cuda",
+          f"ba-10k: with no device named the problem is on "
+          f"{prob.poses0.device}")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    p, _, info = solve_ba_device(prob, iters=BA10K_ITERS, return_info=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def mean_err(q):
+        return float(np.linalg.norm(q[:, :2].cpu().numpy() - poses[:, :2],
+                                    axis=1).mean())
+    err_init = float(np.linalg.norm(poses0[:, :2] - poses[:, :2],
+                                    axis=1).mean())
+    err = mean_err(p)
+    prob_t = dataclasses.replace(
+        prob, poses0=torch.tensor(poses, device=dev),
+        landmarks0=torch.tensor(lms, device=dev))
+    floor = mean_err(solve_ba_device(prob_t, iters=BA10K_ITERS)[0])
+    check(err < 0.2 * err_init, f"ba-10k: error {err} >= 0.2 x {err_init}")
+    check(err < max(1.25 * floor, 0.05),
+          f"ba-10k: error {err} against the MAP floor {floor}")
+    check(abs(err - JAX_BA10K_ERR_M) <= BA_ERR_MARGIN * JAX_BA10K_ERR_M,
+          f"ba-10k: error {err}, the JAX package's {JAX_BA10K_ERR_M}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p2, _, info2 = solve_ba_device(prob, iters=BA10K_ITERS,
+                                   return_info=True)
+    end.record()
+    torch.cuda.synchronize()
+    check(torch.equal(p, p2) and info2["n_steps"] == info["n_steps"],
+          "ba-10k: a second solve gave other poses or trials")
+    prof = profile_ba(prob, solve_ba_device, BA10K_ITERS, top=8)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"ba-10k: kernels launched {counts}")
+
+    W, WA, S = ba_products(prob)
+    with full_f32():
+        ms = min(cuda_ms(lambda: WA @ W.T), cuda_ms(lambda: WA @ W.T))
+        dev_ms = device_ms(lambda: WA @ W.T)
+    rows, cols = W.shape
+    ops, nbytes = 2.0 * rows * rows * cols, 4.0 * (2 * rows * cols
+                                                   + rows * rows)
+    b_ms, by = bound(nbytes, ops)
+    schur = dict(shape=f"[{rows}, {cols}] x [{cols}, {rows}]", ms=ms,
+                 device_ms=dev_ms, ops=ops, bytes=nbytes, bound_ms=b_ms,
+                 bound_by=by, share=b_ms / ms)
+    out = dict(err_init=err_init, err=err, map_floor=floor,
+               jax_err=JAX_BA10K_ERR_M, n_steps=info["n_steps"],
+               n_accepted=info["n_accepted"], host_reads=info["host_reads"],
+               events_ms_per_trial=start.elapsed_time(end) / info["n_steps"],
+               first_solve_s=first_s, peak_gib=peak, replay="bit-identical",
+               profile=prof, schur=schur,
+               seconds=time.perf_counter() - t0, card=card)
+    print(f"ba-10k: {json.dumps(out)}", flush=True)
+    del W, WA, S
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_deferred_vs_eager(dev) -> str:
@@ -1560,12 +1790,12 @@ def main() -> int:
     large = run_slice(dev, "eager-large", dense200(), "eager", P_LARGE,
                       TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
                       off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"))
-    c5 = run_slice(dev, "config5", config5(), "deferred", C5_P, C5_TICKS,
-                   JAX_CONFIG5_ATE_M, on=("K5", "K6", "G2"),
-                   off=("K2", "G1", "K3", "K6b", "K1"),
-                   per_superstep=("K6",))
-    check(all(s == 1 for s in c5["host_syncs_per_superstep"]),
-          f"config5: host syncs per superstep {c5['host_syncs_per_superstep']}")
+    c5 = run_config5_slice(dev, "config5", C5_P, C5_CAPACITY,
+                           C5_SUPERSTEPS, SEEDS, JAX_CONFIG5_ATE_M,
+                           JAX_CONFIG5_REFINED_ATE_M, on=("K5", "G2"))
+    c5_points = {name: run_config5_slice(dev, name, P, cap, n, SEEDS[:1])
+                 for name, P, cap, n in C5_POINTS}
+    torch.cuda.empty_cache()
     deferred = run_slice(dev, "deferred-large", dense200(), "deferred",
                          P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K5", "K6"),
                          off=("K2", "G1", "K3", "K6b", "K1"))
@@ -1601,6 +1831,8 @@ def main() -> int:
     check_sharded_vs_dense()
     check_tf32_held_off(dev)
     time_pmm_pass(dev)
+    torch.cuda.empty_cache()
+    check_ba_10k(dev, card)
 
     # Main-path launches of each kernel: the sum of the counts of the
     # phase-4 runs. K1 lies on no path (the JAX package calls it only
@@ -1610,9 +1842,13 @@ def main() -> int:
     slices = dict(zip(("eager-small", "eager-large", "config5",
                        "deferred-large", "fs2-small", "fs2-1m"),
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
+    slices.update(c5_points)
+    # The slices that launch none of the nine kernels (ba-10k: checked in
+    # its phase).
     ekf_slices = {"ekf-webmap": ekf_webmap, "ekf-dense200": ekf_dense200,
                   "ekf-10k": ekf_10k}
     slices.update(ekf_slices)
+    ekf_slices["ba-10k"] = None
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()

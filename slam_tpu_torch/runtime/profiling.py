@@ -17,7 +17,10 @@ seed 3:
   package's ``ekf1_webmap`` line, heading unknown;
 - ``ekf-10k``: the landmark-block ``ShardedEkfSlam`` on one card at 10k
   landmarks (``config5_setup(10_000, capacity=10_000, max_obs=96)``),
-  the JAX package's ``ekf_10k`` line.
+  the JAX package's ``ekf_10k`` line;
+- ``ba-10k``: bundle adjustment alone, ``solve_ba_device`` (30
+  iterations) on ``make_ba_problem(256, 10_000)``, the JAX package's
+  ``ba_10k`` line.
 
 A run goes ``--warm`` supersteps (dense200's vehicle first sees a
 landmark at superstep 137, so those slices warm up for 150; the
@@ -27,8 +30,15 @@ One run takes the window under the profiler: per superstep the device
 time, the device events (kernels and copies) and the time of each
 kernel. Two more runs take it without: the loop wall per superstep (and
 the device busy share against it), the host syncs and the kernel
-launches per superstep. The last line is one JSON object; ``--out DIR``
-also writes the per-kernel table there. Needs a CUDA card.
+launches per superstep. ``config5`` then runs its filter for 32
+supersteps and profiles config #5's BA stage on that run
+(``problem_from_run``, ``solve_ba_sharded``, 12 iterations), as
+``ba-10k`` profiles its solve (``profile_ba``): per LM trial the device
+events, the device time, the host reads and the wall, and the shares of
+a trial's device time that the Schur product W All^-1 W' and the
+Cholesky factorization of the reduced system take (each timed alone at
+the solve's first point). The last line is one JSON object; ``--out
+DIR`` also writes the per-kernel table there. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -74,13 +84,36 @@ def device_ms(fn, iters: int = 10):
     return us / iters / 1e3 if us > 0 else None
 
 
-SLICES = ("config5", "eager-small", "fs2-small", "ekf-webmap", "ekf-10k")
-# (warm-up supersteps, measured supersteps) by default, per slice.
+def events_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of ``fn`` by CUDA events around
+    ``iters`` back-to-back calls, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+SLICES = ("config5", "eager-small", "fs2-small", "ekf-webmap", "ekf-10k",
+          "ba-10k")
+# (warm-up supersteps, measured supersteps) by default, per slice that
+# runs the filter loop.
 WINDOWS = {"config5": (16, 16), "eager-small": (150, 40),
            "fs2-small": (150, 40), "ekf-webmap": (80, 40),
            "ekf-10k": (16, 16)}
-# Landmarks (and capacity) of the ekf-10k slice.
+# Landmarks (and capacity) of the ekf-10k slice; keyframes and landmarks
+# of the ba-10k problem.
 EKF10K_LANDMARKS = 10_000
+BA10K_SHAPE = (256, 10_000)
+# Config #5's supersteps and BA iterations (the JAX package's
+# run_config5 defaults), and ba_10k's iterations.
+CONFIG5_SUPERSTEPS, CONFIG5_BA_ITERS, BA10K_ITERS = 32, 12, 30
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                     os.pardir, "data")
 
@@ -170,9 +203,101 @@ def window_run(runner, seed: int, warm: int, n: int, prof=None) -> dict:
 
 def profile_slice(name: str, warm: int, n: int, seed: int = 3,
                   top: int = 12) -> dict:
-    """``profile_runner`` of a slice's runner on the card."""
-    runner = slice_runner(name, torch.device("cuda", 0))
-    return dict(slice=name, **profile_runner(runner, warm, n, seed, top))
+    """``profile_runner`` of a slice's runner on the card, and for
+    config #5 its BA stage's ``profile_ba``; for ba-10k, ``profile_ba``
+    alone."""
+    from slam_tpu_torch.posegraph import (
+        problem_from_run,
+        solve_ba_device,
+        solve_ba_sharded,
+    )
+
+    dev = torch.device("cuda", 0)
+    if name == "ba-10k":
+        from slam_tpu_torch.posegraph.synthetic import make_ba_problem
+        prob = make_ba_problem(*BA10K_SHAPE, device=dev)[0]
+        return dict(slice=name, ba=profile_ba(prob, solve_ba_device,
+                                              BA10K_ITERS, top),
+                    kernels=[], card=torch.cuda.get_device_name(0))
+    runner = slice_runner(name, dev)
+    out = dict(slice=name, **profile_runner(runner, warm, n, seed, top))
+    if name == "config5":
+        result = runner.run(seed=seed, n_ticks=CONFIG5_SUPERSTEPS
+                            * runner.config.steps_per_observe)
+        prob = problem_from_run(result, runner.config, device=dev)
+        del result
+        out["ba"] = profile_ba(prob, solve_ba_sharded, CONFIG5_BA_ITERS, top)
+    return out
+
+
+def ba_products(prob):
+    """(W [3T, 2L], W All^-1, the reduced system S [3T, 3T]) of the first
+    trial of a solve of ``prob`` (damping 1e-3): the operands of the
+    Schur product and of the Cholesky factorization."""
+    from slam_tpu_torch.models.ekf import full_f32
+    from slam_tpu_torch.posegraph import ba
+
+    poses, landmarks, static, plan, lam = ba._start(prob, 1e-3)
+    with full_f32():
+        App, W, All, _, _ = ba._gn_normal_blocks(
+            poses, landmarks, *static[:6], static[6], prob.L, plan)
+        WA = ba._times_blocks(W, ba._inv_2x2_blocks(ba._damped(All, lam)))
+        S = App + lam * ba._eye(App.shape[0], App) - WA @ W.T
+    return W, WA, S
+
+
+def profile_ba(prob, solve, iters: int, top: int = 12) -> dict:
+    """One solve of ``prob`` by ``solve`` (``solve_ba``,
+    ``solve_ba_device`` or ``solve_ba_sharded``) under the profiler,
+    after a warm-up solve; per LM trial its device events, device time
+    and host reads, and the wall of an unprofiled solve (host clock,
+    ended by a sync); the device times of the Schur product and of the
+    Cholesky factorization alone, and their shares of a trial's device
+    time (by CUDA events where the profiler sees no device time, as it
+    sometimes does not for a bare cuBLAS product late in a long
+    process); the peak device memory of the solve."""
+    from slam_tpu_torch.models.ekf import full_f32
+    from slam_tpu_torch.ops.kalman import cholesky_lower
+
+    solve(prob, iters=iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, info = solve(prob, iters=iters, return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve(prob, iters=iters)
+        torch.cuda.synchronize()
+    n = info["n_steps"]
+    per = {key: (us / n / 1e3, calls / n)
+           for key, (us, calls) in kernel_times(prof).items()}
+    device_trial = sum(v[0] for v in per.values())
+    W, WA, S = ba_products(prob)
+    parts = {}
+    with full_f32():
+        for name, fn in (("schur", lambda: WA @ W.T),
+                         ("cholesky", lambda: cholesky_lower(S.mT))):
+            ms = device_ms(fn)
+            parts[f"{name}_ms"], parts[f"{name}_timed_by"] = (
+                (ms, "device") if ms is not None else (events_ms(fn),
+                                                       "events"))
+            parts[f"{name}_share"] = (parts[f"{name}_ms"] / device_trial
+                                      if device_trial else None)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    return dict(
+        T=prob.T, L=prob.L, iters=iters, n_steps=n,
+        host_reads=info["host_reads"],
+        host_reads_per_trial=info["host_reads"] / n,
+        device_ms_per_trial=device_trial,
+        events_per_trial=sum(v[1] for v in per.values()),
+        wall_ms_per_trial=wall / n * 1e3,
+        device_busy_share=device_trial * n / (wall * 1e3), **parts,
+        peak_gib=peak,
+        kernels=[dict(name=k, ms_per_trial=v[0], calls_per_trial=v[1])
+                 for k, v in ranked[:top]])
 
 
 def profile_runner(runner, warm: int, n: int, seed: int = 3,
@@ -219,7 +344,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    warm, n = WINDOWS[args.slice]
+    warm, n = WINDOWS.get(args.slice, (0, 0))
     t0 = time.perf_counter()
     res = profile_slice(args.slice, args.warm or warm, args.supersteps or n)
     res["seconds"] = time.perf_counter() - t0
@@ -233,6 +358,11 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, f"profile-{args.slice}.json"),
                   "w") as fh:
             json.dump(res, fh, indent=1)
+    if "ba" in res:
+        for k in res["ba"]["kernels"]:
+            print(f"BA {k['ms_per_trial']:.4f} ms/trial "
+                  f"{k['calls_per_trial']:.3f} calls  {k['name'][:90]}",
+                  flush=True)
     print(json.dumps({k: v for k, v in res.items() if k != "kernels"}))
     return 0
 

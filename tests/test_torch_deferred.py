@@ -297,6 +297,157 @@ def test_runner_refuses_an_estimator_on_another_device():
 
 
 # ---------------------------------------------------------------------------
+# A drive against JAX, superstep by superstep
+# ---------------------------------------------------------------------------
+
+DRIVE_SUPERSTEPS = 16
+TOL_DRIVE = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def stream():
+    """ring40's JAX simulator, seed 3, from the first superstep whose
+    observation batch sees three landmarks: the true pose before it,
+    then for each of DRIVE_SUPERSTEPS supersteps the noisy controls of
+    its ticks [T, 2] and its batch (z, ids, mask) as numpy (the stream of
+    test_torch_fastslam1.py's drive)."""
+    import os
+
+    from slam_tpu.config import SlamConfig as JSlamConfig
+    from slam_tpu.maps import read_map_file
+    from slam_tpu.sim.simulator import Simulator as JSimulator
+
+    data = os.path.join(os.path.dirname(__file__), os.pardir, "data")
+    cfg = JSlamConfig.from_ini(os.path.join(data, "ring40.ini"))
+    slam_map = read_map_file(os.path.join(data, "ring40.mat"))
+    sim = JSimulator(cfg, slam_map)
+    s = sim.init(seed=3)
+    step, observe = jax.jit(sim.control_step), jax.jit(sim.observe_step)
+    pose, steps, ctl = None, [], []
+    for _ in range(4000 // cfg.steps_per_observe):
+        for _ in range(cfg.steps_per_observe):
+            s, c = step(s)
+            ctl.append((c.v_noisy, c.g_noisy))
+        s, obs = observe(s)
+        if steps or int(obs.count) >= 3:
+            steps.append((np.asarray(ctl, np.float32),
+                          tuple(np.asarray(a)
+                                for a in (obs.z, obs.ids, obs.mask))))
+            if len(steps) == DRIVE_SUPERSTEPS:
+                return cfg, slam_map, pose, steps
+        else:
+            pose = np.asarray(s.vehicle.pose)
+        ctl = []
+    raise AssertionError("the vehicle never sees a landmark")
+
+
+def test_deferred_drive_matches_jax(stream, monkeypatch):
+    """16 supersteps of FastSlam1Deferred's update at P = 512 (K5's and
+    K4's twins, G2's), each package on its own carry from the same start
+    (every particle at the true pose, nothing mapped), on one
+    observation stream, the JAX side as tests/test_deferred.py runs it
+    (interpret mode). Injected: the motion noise from one numpy draw,
+    JAX's stratified dither and prefix sum. After each superstep: the
+    gate, the offspring bounds (the ancestors) and n, da_table exactly;
+    weights, poses and planes (pending permutation included) at
+    TOL_DRIVE. The resample fires and holds along the way; then both
+    finalized states."""
+    from slam_tpu.models import rbpf as jrbpf
+    from slam_tpu_torch.models import rbpf as trbpf
+
+    cfg, slam_map, pose, steps = stream
+    P = 512
+    n_map = slam_map.n_landmarks
+    L = -(-n_map // 8) * 8
+    jps = jinit(P, L, n_map)._replace(
+        xv=jnp.asarray(np.repeat(pose[:, None], P, axis=1)))
+    lo, nch, ident = jkernels.identity_bounds_meta(P)
+    jd = jfs1.DeferredState(ps=jps, S=jnp.arange(1, P + 1, dtype=jnp.int32),
+                            lo=lo, nch=nch, ident=ident)
+    td = deferred_state_from_numpy({"ps": _as_numpy(jps),
+                                    "S": np.asarray(jd.S)}, device="cpu")
+    R = np.diag(np.asarray(cfg.Re, np.float32))
+    n_min = float(cfg.NEFFECTIVE * P / cfg.NPARTICLES)
+    sig = np.sqrt(np.asarray(cfg.Qe, np.float32))
+    rng = np.random.default_rng(P)
+
+    bounds = jfs1.deferred_resample_bounds
+    pre = []
+
+    def spy(logw, key, n_min, do_resample):
+        pre.append(logw)
+        return bounds(logw, key, n_min, do_resample)
+    monkeypatch.setattr(jfs1, "deferred_resample_bounds", spy)
+
+    @jax.jit
+    def jax_update(jd, key, z, ids, zmask, n_min):
+        """JAX's update, and what the port is fed: the prefix sum and
+        dither of its resample, and its gate."""
+        pre.clear()
+        post = jfs1.fs1_update_deferred(jd, key, z, ids, zmask,
+                                        jnp.asarray(R), n_min,
+                                        interpret=True)
+        logw_n = jrs.normalize_log_weights(pre[0])
+        return dict(post=post, need=jrs.effective_particles(logw_n) < n_min,
+                    csum=jrs._cumsum_2d(jnp.exp(logw_n)),
+                    U=jrs._uniform_at(key, jnp.arange(P, dtype=jnp.int32)))
+
+    @jax.jit
+    def jax_predict(xv, V, G):
+        for t in range(V.shape[0]):
+            xv = jrbpf.propagate_poses(xv, V[t], G[t], cfg.WHEELBASE,
+                                       cfg.DT_CONTROLS)
+        return xv
+
+    csum = {}
+    monkeypatch.setattr(trs, "cumulative_weights", lambda logw: csum["now"])
+    gates = []
+    for i, (ctl, (z, ids, zmask)) in enumerate(steps):
+        T = ctl.shape[0]
+        V = (ctl[:, 0:1] + rng.normal(size=(T, P)) * sig[0]).astype(
+            np.float32)
+        G = (ctl[:, 1:2] + rng.normal(size=(T, P)) * sig[1]).astype(
+            np.float32)
+        jd = jd._replace(ps=jd.ps._replace(xv=jax_predict(
+            jd.ps.xv, jnp.asarray(V), jnp.asarray(G))))
+        txv = td.ps.xv
+        for t in range(T):
+            txv = trbpf.propagate_poses(txv, _t(V[t]), _t(G[t]),
+                                        cfg.WHEELBASE, cfg.DT_CONTROLS)
+        td = td._replace(ps=td.ps._replace(xv=txv))
+
+        want = jax_update(jd, jax.random.key(100 + i), jnp.asarray(z),
+                          jnp.asarray(ids), jnp.asarray(zmask),
+                          jnp.float32(n_min))
+        csum["now"] = _t(want["csum"])
+        U = _t(want["U"])
+        td = tfs1.fs1_update_deferred(td, _t(z), _t(ids), _t(zmask), R,
+                                      n_min, lambda pos, U=U: U[pos])
+        jd = want["post"]
+
+        need = bool(want["need"])
+        gates.append(need)
+        assert td.pending == need, f"superstep {i}: gate"
+        np.testing.assert_array_equal(td.S.numpy(), np.asarray(jd.S),
+                                      err_msg=f"superstep {i}: bounds")
+        got, exp = state_to_numpy(td.ps), _as_numpy(jd.ps)
+        for f in ("logw", "xv", "lm", "lm_P"):
+            np.testing.assert_allclose(got[f], exp[f], **TOL_DRIVE,
+                                       err_msg=f"superstep {i}: {f}")
+        for f in ("n", "da_table"):
+            np.testing.assert_array_equal(got[f], exp[f],
+                                          err_msg=f"superstep {i}: {f}")
+    assert True in gates and False in gates
+    got = state_to_numpy(tfs1.finalize_deferred(td))
+    exp = _as_numpy(jfs1.finalize_deferred(jd, interpret=True))
+    for f in ("logw", "xv", "lm", "lm_P"):
+        np.testing.assert_allclose(got[f], exp[f], **TOL_DRIVE, err_msg=f)
+    for f in ("n", "da_table"):
+        np.testing.assert_array_equal(got[f], exp[f], err_msg=f)
+    assert int(got["n"]) >= 3
+
+
+# ---------------------------------------------------------------------------
 # Config #5 and the carry
 # ---------------------------------------------------------------------------
 

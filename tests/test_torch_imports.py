@@ -44,14 +44,18 @@ module.KERNELS
 loaded = sorted(set(sys.modules) - before)
 bad = [m for m in loaded if m.split(".")[0] in {FORBIDDEN!r}]
 assert not bad, bad
-print(len(names), "modules")
+print(len(names), "modules", *names)
 """
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=str(ROOT), timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20, proc.stdout
+    count, _, *names = proc.stdout.split()
+    assert int(count) >= 20, proc.stdout
+    for name in ("posegraph", "posegraph.ba", "posegraph.distributed",
+                 "posegraph.synthetic", "runtime.config5"):
+        assert f"slam_tpu_torch.{name}" in names, name
 
 
 def _imports(path: Path):

@@ -44,7 +44,8 @@ def test_slices_build_their_runners():
         assert runner.n_particles == 100 and runner.map.n_landmarks == 200
         assert runner.method == {"eager-small": "FASTSLAM1",
                                  "fs2-small": "FASTSLAM2"}[name]
-    assert set(profiling.WINDOWS) == set(profiling.SLICES)
+    # Every slice but ba-10k, which runs no filter loop, has a window.
+    assert set(profiling.WINDOWS) == set(profiling.SLICES) - {"ba-10k"}
 
 
 @pytest.mark.parametrize("name", ["ekf-webmap", "ekf-10k"])
@@ -70,8 +71,29 @@ def test_ekf_slices_run_their_window(no_device_sync, monkeypatch, name):
     assert out["host_syncs"] == 0.0 and out["launches"] == {}
 
 
-def test_main_refuses_without_a_card():
+@pytest.mark.parametrize("name", ["eager-small", "ba-10k"])
+def test_main_refuses_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
-        profiling.main(["--slice", "eager-small"])
+        profiling.main(["--slice", name])
+
+
+def test_ba_products_are_the_first_trials_operands():
+    """The Schur product's operands W [3T, 2L] and W All^-1, and the
+    reduced system S [3T, 3T] that the first trial of a solve factors:
+    the trial's step from S equals the solver's own step."""
+    from slam_tpu_torch.posegraph import ba
+    from slam_tpu_torch.posegraph.synthetic import make_ba_problem
+
+    prob = make_ba_problem(12, 80, K=6, device="cpu")[0]
+    W, WA, S = profiling.ba_products(prob)
+    T, L = prob.T, prob.L
+    assert W.shape == WA.shape == (3 * T, 2 * L) and S.shape == (3 * T,
+                                                                 3 * T)
+    poses, landmarks, static, plan, lam = ba._start(prob, 1e-3)
+    _, _, _, bp, bl = ba._gn_normal_blocks(poses, landmarks, *static[:6],
+                                           static[6], L, plan)
+    dp = ba._solve_pos(S, bp - WA @ bl.reshape(-1))
+    want, _ = ba._gn_step(poses, landmarks, *static, lam, plan)
+    assert torch.equal(ba._step_poses(poses, dp), want)
