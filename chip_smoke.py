@@ -16,7 +16,9 @@ Phases, in order; any failure raises and exits non-zero:
    several k each), bit-equal to K4 on the same inputs wherever the
    matched slots are distinct, and timed beside K4 at P=100 and at the
    ragged P; K4 (K=15, L=200,
-   P=2^17; and slice (f)'s K=9, L=40, P=2^20), G1 (P=100) and G2
+   P=2^17; and slice (f)'s K=9, L=40, P=2^20; at each shape its thread
+   map and chunk as the library reports them, and the registers of the
+   launched instantiation by nvcc -Xptxas -v), G1 (P=100) and G2
    (P=2^17; and P=2^20 at L=40), over the 10 + 5L rows of the resample
    gather; K4 and K5 at config #5's shapes (K=96, L=192, P=2^20; K5
    with a fired resample) and at the full-10k run's (K=96, L=10,000,
@@ -654,10 +656,38 @@ def check_k2(dev, rng, g) -> dict:
     return dict(out, max_abs_err=err)
 
 
+def ptxas_registers(source) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} of one csrc
+    source, by ``nvcc -Xptxas -v`` under the build's flags (the object
+    file thrown away)."""
+    import re
+    import tempfile
+
+    from slam_tpu_torch.ops.kernels import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", f"{tmp}/k.o", str(build.CSRC_DIR / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=300)
+    out = proc.stdout
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{out}")
+    regs = {}
+    for part in out.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        used = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        check(used is not None, f"ptxas: no register count for {name}")
+        regs[name] = (int(used.group(1)), int(spill.group(1)) if spill else 0)
+    return regs
+
+
 def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
     """K4 at K observations, L slots, P particles: ``live`` landmarks
     mapped, ``n_match`` of them observed, ``n_new`` new ones and the
-    rest masked."""
+    rest masked. Also records K4's map at this P, as the library reports
+    it: threads per particle and chunk."""
     import torch
 
     from slam_tpu_torch.ops.kernels import kernels as kk
@@ -682,6 +712,8 @@ def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
     nbytes = 4 * P * (3 + 2 + 5 * n_match + 5 * (n_match + n_new)) + 18 * K
     return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
                 ops=P * (n_match * OPS_MATCH + n_new * OPS_INIT),
+                **dict(zip(("threads_per_particle", "chunk"),
+                           kk.fused_update_map(P))),
                 **measure(lambda: kk.fused_update(*b_k),
                           lambda: kk.fused_update_plain(*b_p)))
 
@@ -1757,6 +1789,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
           flush=True)
 
+    # Compiled before the timed phase, not beside it: some kernels' times
+    # are host-bound.
+    k4_regs = ptxas_registers("fused_update.cu")
     t0 = time.perf_counter()
     kernel_stats = check_kernels(dev)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1765,6 +1800,16 @@ def main() -> int:
     for name, st in kernel_stats.items():
         b_ms, by = bound(st["bytes"], st["ops"])
         st.update(bound_ms=b_ms, bound_by=by, share=b_ms / st["ms"])
+        k4_map = ""
+        if name.split()[0] == "K4":
+            T = st["threads_per_particle"]
+            (regs, spill), = [v for n, v in k4_regs.items()
+                              if f"fs1_fused_update_kernelILi{T}E" in n]
+            st.update(registers=regs, spill_store_bytes=spill)
+            k4_map = (f", share of device time "
+                      f"{b_ms / (st['device_ms'] or st['ms']):.3f}; "
+                      f"{T} threads per particle, chunk {st['chunk']}, "
+                      f"{regs} registers, {spill} bytes spilled")
         if name in sass:
             st.update(issue_bound(st, sass[name]))
             print(f"kernel {name}: issue bound {st['issue_bound_ms']:.4f} ms "
@@ -1776,7 +1821,7 @@ def main() -> int:
         print(f"kernel {name} ({st['shape']}): {st['ms']:.4f} ms (device "
               f"{st['device_ms']}), plain {st['plain_ms']:.4f} ms, bound "
               f"{b_ms:.4f} ms by {by} ({st['bytes']:.4g} B, "
-              f"{st['ops']:.4g} ops), share {st['share']:.3f}{lib}, "
+              f"{st['ops']:.4g} ops), share {st['share']:.3f}{lib}{k4_map}, "
               f"max_abs_err {st['max_abs_err']:.3g} [{card}]", flush=True)
     torch.cuda.empty_cache()
 
@@ -1871,6 +1916,12 @@ def main() -> int:
             row.update({f: st[f] for f in (
                 "k4_ms", "k4_device_ms", "ragged_P", "ragged_ms",
                 "ragged_device_ms", "ragged_k4_ms", "ragged_k4_device_ms")})
+        if name == "K4":
+            row.update(chunk=st["chunk"], shapes=[
+                {f: s[f] for f in ("shape", "ms", "device_ms", "bound_ms",
+                                   "threads_per_particle", "registers",
+                                   "spill_store_bytes")}
+                for n, s in kernel_stats.items() if n.split()[0] == "K4"])
         if name == "K5":
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",

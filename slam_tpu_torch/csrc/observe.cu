@@ -16,9 +16,9 @@
 //
 // Bound: at P = 100 (the reference default), the latency of one
 // observation's dependent chain: the Jacobians, IEEE divides, atan2,
-// sqrt and log of planes.cuh:fs1_match. K4's map, one thread per
-// particle walking the K observations, is K chains long on one SM at
-// P = 100. Here a block holds all K observations of PB particles, p
+// sqrt and log of planes.cuh:fs1_match. One thread per particle
+// walking the K observations (K4's first map) is K chains long on one
+// SM at P = 100. Here a block holds all K observations of PB particles, p
 // fastest, so that each (slot, plane) access of a warp is contiguous:
 // PB = 8 below kWideP particles (P = 100, K = 15: 13 blocks of 120
 // threads), else 16, widened until a block has 128 threads. Where K x PB
@@ -39,7 +39,7 @@
 //      wins, and every update comes from the old values); each ok_new k
 //      writes planes.cuh:feature_init_planes at slot_new[k]; one thread
 //      per particle sums the matched terms in k order from 0.0f, as
-//      fs1_update_column does, and writes logw[p] + d.
+//      K4 (fused_update.cu) does, and writes logw[p] + d.
 //
 // Race freedom, with no atomics and no reduction across blocks: a
 // particle column belongs to one block; matched slots are < n and new

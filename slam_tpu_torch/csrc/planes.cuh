@@ -221,8 +221,9 @@ __device__ __forceinline__ void refine_pose_planes(const Jacobians& J,
 
 // One matched observation (z0, z1) of feature f, seen from the pose
 // (x, y, t): its log-likelihood is added to d, and f's 2x2 EKF update
-// is returned. K4 (fs1_update_column) and K5 (resample_update.cu) both
-// run it, so their updates and sums are bit-equal.
+// is returned. K4 (fused_update.cu), K2 (observe.cu) and K5
+// (resample_update.cu) all run it, so their updates and sums are
+// bit-equal.
 __device__ __forceinline__ Feature fs1_match(float x, float y, float t,
                                              const Feature& f, float z0,
                                              float z1, float r00, float r01,
@@ -233,49 +234,6 @@ __device__ __forceinline__ Feature fs1_match(float x, float y, float t,
   const float v1 = wrap_angle(z1 - J.zb);
   d += log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11);
   return feature_update_planes(f.x, f.y, f.p00, f.p01, f.p11, v0, v1, J);
-}
-
-// The FastSLAM 1 update of one particle column p, in place on the
-// landmark planes lm [2, L, P] and lmP [3, L, P] (K4's body): for each
-// matched observation k, in k order, the likelihood and the 2x2 EKF
-// update of slot[k]; for each ok_new k, the new feature at slot_new[k].
-// Slots outside [0, L) are dropped. Returns the log-likelihood summed
-// over the matched k.
-__device__ __forceinline__ float fs1_update_column(
-    float x, float y, float t, float* lm, float* lmP, int p, int P,
-    const float* z, const int* slot, const unsigned char* matched,
-    const int* slot_new, const unsigned char* ok_new, float r00, float r01,
-    float r11, int K, int L) {
-  const long plane = (long)L * P;  // stride between component planes
-  float d = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float z0 = z[2 * k];
-    const float z1 = z[2 * k + 1];
-    const int s = slot[k];
-    if (matched[k] && s >= 0 && s < L) {
-      const long i = (long)s * P + p;
-      const Feature f = fs1_match(
-          x, y, t, Feature{lm[i], lm[plane + i], lmP[i], lmP[plane + i],
-                           lmP[2 * plane + i]},
-          z0, z1, r00, r01, r11, d);
-      lm[i] = f.x;
-      lm[plane + i] = f.y;
-      lmP[i] = f.p00;
-      lmP[plane + i] = f.p01;
-      lmP[2 * plane + i] = f.p11;
-    }
-    const int sn = slot_new[k];
-    if (ok_new[k] && sn >= 0 && sn < L) {
-      const long i = (long)sn * P + p;
-      const Feature f = feature_init_planes(x, y, t, z0, z1, r00, r01, r11);
-      lm[i] = f.x;
-      lm[plane + i] = f.y;
-      lmP[i] = f.p00;
-      lmP[plane + i] = f.p01;
-      lmP[2 * plane + i] = f.p11;
-    }
-  }
-  return d;
 }
 
 }  // namespace slam

@@ -10,8 +10,8 @@ Neff-gated stratified resample.
 The eager update dispatches as the JAX package does on a TPU:
 
 - the weights, the matched landmarks' EKF updates and the new features
-  in one in-place kernel launch: K4 (one thread per particle) when
-  P % 128 == 0, otherwise K2 (the same function at any P, one thread per
+  in one in-place kernel launch: K4 (1 or 4 threads per particle, by
+  P) when P % 128 == 0, otherwise K2 (the same function at any P, one thread per
   (observation, particle) pair); the id table and the live count stay
   out here.
 - resample: G2 from the offspring bounds when P % 512 == 0, else G1.

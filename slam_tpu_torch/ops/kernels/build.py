@@ -56,6 +56,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "slam_fs1_observe": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
     "slam_fs1_fused_update": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
+    "slam_fs1_fused_update_map": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "slam_fs1_resample_update": [_P] * 12 + [_F] * 3 + [_I] * 4 + [_P],
     "slam_fs1_predict_multi": [_P] * 3 + [_F] * 5 + [_I] * 3 + [_P],
     "slam_fs2_predict_multi": [_P] * 4 + [_F] * 8 + [_I] * 3 + [_P],

@@ -11,6 +11,8 @@ kernel launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from slam_tpu_torch.geometry import wrap_angle
@@ -196,8 +198,10 @@ def _update_launch(name, xv, logw, lm, lm_P, z, slot, matched, slot_new,
 def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
                  R) -> None:
     """K4 (replaces kernels.py:fs1_update_tpu), in place on logw, lm and
-    lm_P: the twin on the CPU, the CUDA kernel csrc/fused_update.cu (one
-    thread per particle) on the card."""
+    lm_P: the twin on the CPU, the CUDA kernel csrc/fused_update.cu on
+    the card (4 or 1 threads per particle as P grows, each loading a
+    chunk of its observations' slots before it stores any: see
+    fused_update_map)."""
     if not xv.is_cuda:
         fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
                            ok_new, R)
@@ -208,6 +212,17 @@ def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
 
 
 fused_update.launches = 0
+
+
+def fused_update_map(P: int) -> tuple[int, int]:
+    """K4's map at P particles, as the built library launches it:
+    (threads per particle, observations a thread loads before it
+    stores)."""
+    threads, chunk = ctypes.c_int(), ctypes.c_int()
+    build.check(build.load_library().slam_fs1_fused_update_map(
+        P, ctypes.byref(threads), ctypes.byref(chunk)),
+        "slam_fs1_fused_update_map")
+    return threads.value, chunk.value
 
 
 def observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,

@@ -58,10 +58,39 @@ def _mid_run(P=256, L=16, n_map=24, seed=11):
     return state, z, ids, zmask
 
 
-def _update_inputs(P=256, L=16, n_map=24, seed=11):
-    """``_mid_run``'s state and batch, and the bookkeeping fs1_update
+def _wide_run(P, L, n_map, seed):
+    """A JAX ParticleState with 40 live slots, and a batch of K = 40
+    observations in a shuffled order: 22 matched (more than two of K4's
+    widest rounds, 8 events each, hold), 6 new and 12 masked."""
+    rng = np.random.default_rng(seed)
+    live = 40
+    table = -np.ones(n_map, np.int32)
+    table[rng.permutation(n_map)[:live]] = rng.permutation(live)
+    lm_P = np.zeros((3, L, P), np.float32)
+    lm_P[0], lm_P[2] = 0.1, 0.1
+    lm_P[1] = 0.01
+    state = jinit(P, L, n_map)._replace(
+        logw=jnp.asarray(rng.normal(size=P).astype(np.float32)),
+        xv=jnp.asarray(rng.normal(size=(3, P)).astype(np.float32) * 0.1),
+        lm=jnp.asarray(rng.normal(size=(2, L, P)).astype(np.float32) * 5),
+        lm_P=jnp.asarray(lm_P), n=jnp.int32(live),
+        da_table=jnp.asarray(table))
+    mapped, unmapped = np.flatnonzero(table >= 0), np.flatnonzero(table < 0)
+    ids = np.concatenate([rng.choice(mapped, 22, replace=False),
+                          rng.choice(unmapped, 6, replace=False),
+                          rng.choice(mapped, 12)])
+    zmask = np.arange(40) < 28
+    order = rng.permutation(40)
+    z = np.column_stack([rng.uniform(3, 8, 40), rng.uniform(-0.5, 0.5, 40)])
+    return (state, jnp.asarray(z.astype(np.float32)),
+            jnp.asarray(ids[order].astype(np.int32)),
+            jnp.asarray(zmask[order]))
+
+
+def _update_inputs(P=256, L=16, n_map=24, seed=11, run=_mid_run):
+    """``run``'s state and batch, and the bookkeeping fs1_update
     derives from it: (state, z, slot, matched, slot_new, ok)."""
-    state, z, ids, zmask = _mid_run(P, L, n_map, seed)
+    state, z, ids, zmask = run(P, L, n_map, seed)
     assoc, is_new = jrbpf.associate_known(state, ids, zmask)
     matched = assoc >= 0
     slot = jnp.where(matched, assoc, 0)
@@ -171,8 +200,12 @@ def test_k2_twin_keeps_the_first_update_of_a_shared_slot():
     np.testing.assert_array_equal(got[:, freed], old[:, freed])
 
 
-def test_k4_twin_matches_fs1_update_tpu():
-    state, z, slot, matched, slot_new, ok = _update_inputs()
+@pytest.mark.parametrize("inputs", [
+    dict(),
+    dict(P=256, L=64, n_map=96, seed=12, run=_wide_run),
+], ids=["mid-run", "wide-batch"])
+def test_k4_twin_matches_fs1_update_tpu(inputs):
+    state, z, slot, matched, slot_new, ok = _update_inputs(**inputs)
     assert bool(np.asarray(matched).any()) and bool(np.asarray(ok).any())
     assert not bool(np.asarray(matched | ok).all())
     want = jkernels.fs1_update_tpu(state, z, slot, matched, slot_new, ok,
@@ -330,6 +363,105 @@ def test_k4_kernel_matches_twin_on_card(cuda):
     tkernels.fused_update_plain(*a2)
     for g, w in zip(a1[:4], a2[:4]):
         torch.testing.assert_close(g, w, **TOL)
+
+
+# A particle count for each of K4's thread maps: 4 threads per particle
+# with a partial block (P = 1000), then 1; each P odd, so that no row of
+# a plane starts on a 16-byte edge but the first.
+K4_EDGE_P = (1000, 140_003)
+# Matched counts at K4's edges, from (chunk, round) at P as the library
+# reports them (round: threads per particle x chunk), with no new
+# observation among them so that the counts fall on those edges.
+K4_EDGES = {
+    "none-matched": (lambda c, r: 0, 20), "one": (lambda c, r: 1, 0),
+    "chunk": (lambda c, r: c, 0), "chunk+1": (lambda c, r: c + 1, 0),
+    "round-1": (lambda c, r: r - 1, 0), "round": (lambda c, r: r, 0),
+    "round+1": (lambda c, r: r + 1, 0), "mixed": (lambda c, r: 40, 20),
+    "all-matched": (lambda c, r: 96, 0), "all-masked": (lambda c, r: 0, 0),
+}
+
+
+def _by_slot_batch(P, K, n_match, n_new, L=160, live=120, seed=3):
+    """numpy inputs of K4 and K2: a landmark state of L slots, ``live``
+    of them mapped, and a by-slot batch of K observations in a shuffled
+    order: n_match matched on distinct live slots, n_new new (slots
+    live, live + 1, ... in k order), the rest masked."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    truth = rng.uniform(-25, 25, size=(L, 2)).astype(f32)
+    lm = truth.T[:, :, None] + f32(0.2) * rng.standard_normal((2, L, P), f32)
+    lm_P = np.zeros((3, L, P), f32)
+    lm_P[:, :live] = np.array([0.05, 0.01, 0.04], f32)[:, None, None]
+    kind = rng.permutation(np.repeat([0, 1, 2], [n_match, n_new,
+                                                 K - n_match - n_new]))
+    matched, ok = kind == 0, kind == 1
+    slot = rng.integers(0, live, K)
+    slot[matched] = rng.choice(live, n_match, replace=False)
+    slot_new = live + np.cumsum(ok) - ok
+    d = truth[np.where(ok, slot_new, slot)] + 0.05 * rng.normal(size=(K, 2))
+    z = np.column_stack([np.hypot(d[:, 0], d[:, 1]),
+                         np.arctan2(d[:, 1], d[:, 0])])
+    return dict(xv=f32(0.1) * rng.standard_normal((3, P), f32),
+                logw=rng.standard_normal(P, f32), lm=lm, lm_P=lm_P,
+                z=z.astype(f32), slot=slot.astype(np.int32), matched=matched,
+                slot_new=slot_new.astype(np.int32), ok=ok)
+
+
+def _by_slot_args(b, device):
+    return (_t(b["xv"], device), _t(b["logw"], device), _t(b["lm"], device),
+            _t(b["lm_P"], device), _t(b["z"], device), _t(b["slot"], device),
+            _t(b["matched"], device), _t(b["slot_new"], device),
+            _t(b["ok"], device), R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", K4_EDGE_P)
+@pytest.mark.parametrize("edge", list(K4_EDGES))
+def test_k4_kernel_edges_on_card(cuda, P, edge):
+    """K4 at K = 96 on each thread map, at matched counts around its
+    chunk and its rounds: within TOL of its twin, and bit-equal to K2 on
+    the same inputs (distinct slots: K2 keeps the old K4's operation
+    order and k-ordered sum). All masked, nothing moves."""
+    threads, chunk = tkernels.fused_update_map(P)
+    count, n_new = K4_EDGES[edge]
+    n_match = count(chunk, threads * chunk)
+    b = _by_slot_batch(P, 96, n_match, n_new)
+    a_k4, a_twin, a_k2 = (_by_slot_args(b, cuda) for _ in range(3))
+    before = tk.fused_update.launches
+    tk.fused_update(*a_k4)
+    assert tk.fused_update.launches == before + 1
+    tkernels.fused_update_plain(*a_twin)
+    tk.observe(*a_k2)
+    torch.cuda.synchronize()
+    for g, w, o in zip(a_k4[1:4], a_twin[1:4], a_k2[1:4]):
+        torch.testing.assert_close(g, w, **TOL)
+        assert torch.equal(g, o)
+    if n_match + n_new == 0:
+        for g, w in zip(a_k4[1:4], _by_slot_args(b, cuda)[1:4]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", K4_EDGE_P)
+def test_k4_kernel_walks_a_repeated_slot_in_order(cuda, P):
+    """Outside K4's contract: two matched observations of one slot, and
+    two new ones aimed at one slot. K4 then walks the observations in k
+    order, as one launch per observation does: the planes bit for bit;
+    the weight within TOL (those launches add each term to logw on its
+    own, K4 adds their sum)."""
+    b = _by_slot_batch(P, 96, 40, 20)
+    m, n = np.flatnonzero(b["matched"]), np.flatnonzero(b["ok"])
+    b["slot"][m[1]] = b["slot"][m[0]]
+    b["slot_new"][n[1]] = b["slot_new"][n[0]]
+    got, want = _by_slot_args(b, cuda), _by_slot_args(b, cuda)
+    tk.fused_update(*got)
+    xv, logw, lm, lm_P, z, slot, matched, slot_new, ok, _ = want
+    for k in range(96):
+        tk.fused_update(xv, logw, lm, lm_P, z[k:k + 1], slot[k:k + 1],
+                        matched[k:k + 1], slot_new[k:k + 1], ok[k:k + 1], R)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], lm) and torch.equal(got[3], lm_P)
+    torch.testing.assert_close(got[1], logw, **TOL)
 
 
 @pytest.mark.cuda
