@@ -130,6 +130,34 @@ Phases, in order; any failure raises and exits non-zero:
    and profiler device time), trials, host reads per solve, peak device
    memory, and the Schur product W All^-1 W' ([768, 20000] x [20000,
    768]) timed against its bound.
+12. (k) ckpt-deferred: FastSlam1Deferred on dense200 at P = 131,072,
+   seed 3, through Runner.run_checkpointed: unbroken to superstep 200,
+   then interrupted at a superstep after the first sighting (137) where
+   a resample is pending (read from the unbroken run's updates) and
+   resumed with resume=True. The traces, est_pose, true_pose and the
+   final DeferredState (every plane, S, n, da_table, pending) must be
+   bit-equal; the boundaries after superstep 137 (at least two) and the
+   pending one are printed; K4, K5, K6 and G2 must launch, and K5 again
+   right after the resume. Prints the checkpoint's bytes (file and
+   state), every save's and load's seconds, and the walls of the runs.
+13. (l) ckpt-small: slices (a) (FS1, P = 100: K2, G1) and (h) (EKF1,
+   heading known: cuBLAS, cuSOLVER) checkpointed in chunks of 50,
+   unbroken to 200 and resumed from 150, bit-equal; then run_resilient
+   on (a) with one failure injected after the first chunk must end as
+   the clean run.
+14. (m) stream: run_streaming of (a) and (h), 160 supersteps, into an
+   in-process socket that checks every message by the rules of
+   tests/test_telemetry.py's StrictController with the port's
+   decode_message (no libzmq needed): the setup first, one turn per
+   superstep, the clouds (a) or the ellipses (h) there; the same run
+   headless must equal Runner.run bit for bit. Prints steps/s of run,
+   of the headless stream and of the stream with telemetry, and the
+   host reads per superstep.
+15. (n) CLI: python -m slam_tpu_torch -m data/dense200.mat -method
+   FASTSLAM1 -ckpt DIR/run at 1200 ticks, then at 1600 with -profile
+   DIR2 (it resumes): the checkpoint's superstep and the supersteps
+   reported must follow, and the trace must name K2 and G1
+   (fs1_observe_kernel, gather_kernel). Then time_phases on slice (a).
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -142,8 +170,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # RMS ATE in metres over seeds 3, 4, 5 of the JAX package's FastSLAM 1
@@ -1765,6 +1795,471 @@ def time_pmm_pass(dev) -> dict:
     return out
 
 
+# --- phases 12-15: the runtime edges ----------------------------------------
+# dense200's vehicle first sees a landmark at superstep 137; the
+# checkpointed and streamed runs go to superstep 200 (1600 ticks).
+FIRST_SIGHTING, EDGE_SUPERSTEPS = 137, 200
+# (m): to superstep 160, so the last 23 stream the landmarks too.
+STREAM_SUPERSTEPS = 160
+# (l): chunks of 50 supersteps, the interrupted run stops at 150.
+SMALL_EVERY, SMALL_CUT = 50, 150
+
+
+def state_tensors(state) -> list:
+    """The tensors of a state, its fields depth first."""
+    import torch
+    out = []
+    for v in state:
+        if isinstance(v, tuple):
+            out += state_tensors(v)
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
+TRACES = ("true_pose", "est_pose", "active", "obs_count", "obs_range_sum",
+          "obs_z", "obs_mask", "obs_ids", "odom")
+
+
+def same_traces(name, full, part, start: int) -> None:
+    """The traces of ``part`` are rows ``start`` on of ``full``'s, bit
+    for bit."""
+    import numpy as np
+
+    n = len(part.est_pose)
+    for f in TRACES:
+        check(np.array_equal(getattr(full, f)[start:start + n],
+                             getattr(part, f)),
+              f"{name}: {f} differs from the unbroken run's")
+
+
+def same_run(name, full, tail) -> None:
+    """``tail`` (a resumed run) is the end of ``full`` bit for bit: the
+    nine traces and every tensor and host value of the final state."""
+    import torch
+
+    same_traces(name, full, tail, len(full.est_pose) - len(tail.est_pose))
+    a, b = state_tensors(full.final_state), state_tensors(tail.final_state)
+    check(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, b)),
+          f"{name}: the final states differ")
+    check(getattr(full.final_state, "pending", None)
+          == getattr(tail.final_state, "pending", None),
+          f"{name}: the pending flags differ")
+
+
+class Recorded:
+    """An estimator that records ``pending`` after each update; every
+    other attribute is the estimator's."""
+
+    def __init__(self, est):
+        self._est, self.pending = est, []
+
+    def update(self, *args, **kw):
+        out = self._est.update(*args, **kw)
+        self.pending.append(out.pending)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._est, name)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(io: list):
+    """Times every save and load of the checkpointed runs inside (host
+    clock, after a device sync), with the bytes: the npz file's, and
+    the state's in device memory."""
+    import os
+
+    import torch
+
+    from slam_tpu_torch.runtime import checkpoint
+
+    save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+
+    def nbytes(*states):
+        return sum(t.numel() * t.element_size()
+                   for st in states for t in state_tensors(st))
+
+    def timed_save(path, sim_state, est_state, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(path, sim_state, est_state, *args, **kw)
+        io.append(dict(op="save", s=time.perf_counter() - t0,
+                       file_bytes=os.path.getsize(out),
+                       state_bytes=nbytes(sim_state.vehicle, est_state)))
+        return out
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = load(*args, **kw)
+        torch.cuda.synchronize()
+        io.append(dict(op="load", s=time.perf_counter() - t0,
+                       state_bytes=nbytes(out[0].vehicle, out[1])))
+        return out
+
+    checkpoint.save_checkpoint, checkpoint.load_checkpoint = (timed_save,
+                                                              timed_load)
+    try:
+        yield io
+    finally:
+        checkpoint.save_checkpoint, checkpoint.load_checkpoint = save, load
+
+
+def edge_slice(counts, run_supersteps, **extra) -> dict:
+    """A slice record for the kernel table: its launches, in total and
+    per superstep of the ``run_supersteps`` they were counted over."""
+    return dict(launches=counts, launches_per_superstep={
+        k: n / run_supersteps for k, n in counts.items() if n}, **extra)
+
+
+def check_ckpt_deferred(dev, tmp) -> dict:
+    """Phase 12 (k): FastSlam1Deferred on dense200 at P = 131,072, seed
+    3, checkpointed: unbroken to superstep 200, then cut at a superstep
+    after the first sighting where a resample is pending (read from the
+    unbroken run), and resumed from there. Everything bit-equal."""
+    import os
+
+    from slam_tpu_torch.models import FastSlam1Deferred
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import Runner
+
+    cfg, slam_map = dense200()
+    period, N = cfg.steps_per_observe, EDGE_SUPERSTEPS
+
+    def runner():
+        est = Recorded(FastSlam1Deferred(cfg, slam_map.n_landmarks))
+        return Runner(cfg, slam_map, "FASTSLAM1", n_particles=P_LARGE,
+                      estimator=est)
+
+    io = []
+    with timed_checkpoints(io):
+        kernels.reset_launch_counts()
+        r = runner()
+        full = r.run_checkpointed(seed=3, n_ticks=N * period, every=N,
+                                  ckpt_path=os.path.join(tmp, "full"))
+        counts = kernels.launch_counts()
+        check(not on_card(dev, r, state_tensors(full.final_state)),
+              "ckpt-deferred: with no device named the run is not on "
+              f"{dev}")
+        pending = [i + 1 for i, p in enumerate(r.est.pending) if p]
+        late = [s for s in pending if FIRST_SIGHTING < s <= N - 10]
+        check(late, f"ckpt-deferred: no resample pending between superstep "
+              f"{FIRST_SIGHTING} and {N - 10}: {pending}")
+        cut = next((s for s in late if s >= 150), late[0])
+        ck = os.path.join(tmp, "cut")
+        first = runner().run_checkpointed(seed=3, n_ticks=cut * period,
+                                          every=cut, ckpt_path=ck)
+        with open(ck + ".json") as fh:
+            host = json.load(fh)["est_host"]
+        check(host == [True], f"ckpt-deferred: the checkpoint at {cut} has "
+              f"pending {host}")
+        kernels.reset_launch_counts()
+        resumed = runner().run_checkpointed(seed=3, n_ticks=N * period,
+                                            every=N - cut, ckpt_path=ck,
+                                            resume=True)
+        counts_resumed = kernels.launch_counts()
+    for k in ("K4", "K5", "K6", "G2"):
+        check(counts[k] > 0, f"ckpt-deferred: {k} was never launched "
+              f"{counts}")
+    for k in ("K2", "G1", "K3", "K6b", "K1"):
+        check(counts[k] == 0, f"ckpt-deferred: {k} should not run {counts}")
+    check(counts_resumed["K5"] > 0, "ckpt-deferred: K5 did not run after "
+          f"the resume on a pending resample {counts_resumed}")
+    same_traces("ckpt-deferred (cut)", full, first, 0)
+    same_run("ckpt-deferred", full, resumed)
+    boundaries = [s for s in (cut, N) if s > FIRST_SIGHTING]
+    check(len(boundaries) >= 2, f"ckpt-deferred: boundaries {boundaries}")
+    saves = [e for e in io if e["op"] == "save"]
+    loads = [e for e in io if e["op"] == "load"]
+    out = edge_slice(
+        {k: counts[k] + counts_resumed[k] for k in counts},
+        N + N - cut, P=P_LARGE, supersteps=N, cut=cut,
+        boundaries_after_sighting=boundaries, pending_boundaries=[cut],
+        launches_unbroken={k: counts[k] for k in ("K4", "K5", "K6", "G2")},
+        launches_resumed={k: counts_resumed[k]
+                          for k in ("K4", "K5", "K6", "G2")},
+        checkpoint_file_bytes=saves[-1]["file_bytes"],
+        state_bytes=saves[-1]["state_bytes"],
+        save_s=[e["s"] for e in saves], load_s=[e["s"] for e in loads],
+        save_gb_per_s=saves[-1]["state_bytes"] / saves[-1]["s"] / 1e9,
+        load_gb_per_s=loads[-1]["state_bytes"] / loads[-1]["s"] / 1e9,
+        wall_unbroken_s=full.wall_seconds,
+        wall_interrupted_s=first.wall_seconds,
+        wall_resumed_s=resumed.wall_seconds)
+    print(f"slice ckpt-deferred: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_ckpt_small(dev, tmp) -> dict:
+    """Phase 13 (l): slices (a) (FS1, P = 100) and (h) (EKF1, heading
+    known) on dense200, seed 3, checkpointed in chunks of 50 supersteps:
+    unbroken to 200, and cut at 150 and resumed; bit-equal. Then
+    run_resilient on (a) with one failure injected after the first
+    chunk: it must end as the clean run ends."""
+    import os
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import Runner
+    from slam_tpu_torch.runtime.resilience import run_resilient
+
+    cfg, slam_map = dense200()
+    period, N = cfg.steps_per_observe, EDGE_SUPERSTEPS
+    makers = {
+        "ckpt-fs1": lambda: Runner(cfg, slam_map, "FASTSLAM1",
+                                   n_particles=P_SMALL),
+        "ckpt-ekf": lambda: ekf_runner((cfg, slam_map), False)}
+    out = {}
+    for name, make in makers.items():
+        kw = dict(seed=3, every=SMALL_EVERY)
+        kernels.reset_launch_counts()
+        r = make()
+        full = r.run_checkpointed(n_ticks=N * period,
+                                  ckpt_path=os.path.join(tmp, name), **kw)
+        counts = kernels.launch_counts()
+        check(not on_card(dev, r, state_tensors(full.final_state)),
+              f"{name}: with no device named the run is not on {dev}")
+        ck = os.path.join(tmp, name + "-cut")
+        make().run_checkpointed(n_ticks=SMALL_CUT * period, ckpt_path=ck,
+                                **kw)
+        resumed = make().run_checkpointed(n_ticks=N * period, ckpt_path=ck,
+                                          resume=True, **kw)
+        check(len(resumed.est_pose) == N - SMALL_CUT,
+              f"{name}: {len(resumed.est_pose)} resumed supersteps")
+        same_run(name, full, resumed)
+        out[name] = edge_slice(counts, N, full=full)
+    fs1 = out["ckpt-fs1"]
+    check(fs1["launches"]["K2"] == N and fs1["launches"]["G1"] > 0,
+          f"ckpt-fs1: launches {fs1['launches']}")
+    check(not any(out["ckpt-ekf"]["launches"].values()),
+          f"ckpt-ekf: launches {out['ckpt-ekf']['launches']}")
+
+    class Flaky(Runner):
+        """Fails in its first checkpointed run after the first chunk is
+        saved (tests/test_resilience.py's FlakyRunner)."""
+        failures = 0
+
+        def run_checkpointed(self, **kw):
+            if not kw.get("resume"):
+                Flaky.failures += 1
+                try:
+                    super().run_checkpointed(**{
+                        **kw, "n_ticks": SMALL_EVERY * period})
+                finally:
+                    raise RuntimeError("injected failure")
+            return super().run_checkpointed(**kw)
+
+    got = run_resilient(Flaky(cfg, slam_map, "FASTSLAM1",
+                              n_particles=P_SMALL),
+                        seed=3, n_ticks=N * period, every=SMALL_EVERY,
+                        ckpt_path=os.path.join(tmp, "flaky"), backoff_s=0.0)
+    check(Flaky.failures == 1 and len(got.est_pose) == N - SMALL_EVERY,
+          f"run_resilient: {Flaky.failures} failures, "
+          f"{len(got.est_pose)} supersteps")
+    same_run("run_resilient", out["ckpt-fs1"].pop("full"), got)
+    out["ckpt-ekf"].pop("full")
+    print(f"ckpt-small: bit-equal across a resume at {SMALL_CUT} (FS1 "
+          f"P={P_SMALL}, EKF1); run_resilient recovered after 1 failure; "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+class StrictGui:
+    """tests/test_telemetry.py's StrictController on the port's
+    ``decode_message``: every scalar one frame of its width, every frame
+    consumed, setCovEllipse indices below the latest covEllipseAdd,
+    laser lines 4 rows, ellipses 2, and each plot() turn exactly one
+    true and estimated position and car (what the stock GUI's
+    DataGatherer::nextTurn relies on)."""
+
+    TURN = ("addTruePosition", "addEstimatedPosition",
+            "setCarTruePosition", "setCarEstimatedPosition")
+    WIDTHS = {"addTruePosition": (8, 8), "addEstimatedPosition": (8, 8),
+              "setCarTruePosition": (8, 8, 8),
+              "setCarEstimatedPosition": (8, 8, 8),
+              "setPlotRange": (8, 8, 8, 8), "setCarSize": (8, 4),
+              "covEllipseAdd": (4,), "loopTime": (4,)}
+    XY = ("setLandmarks", "setWaypoints", "setParticles",
+          "setFeatureParticles")
+
+    def __init__(self):
+        self.counts, self.turn, self.tags = {}, {}, []
+        self.capacity, self.n_turns, self.done = None, 0, False
+
+    def send_multipart(self, frames):
+        import struct
+
+        from slam_tpu_torch.runtime.telemetry import decode_message
+
+        check(not self.done, "telemetry: a message after endPlot")
+        tag, body = decode_message([bytes(f) for f in frames])
+        self.counts[tag] = self.counts.get(tag, 0) + 1
+        self.tags.append(tag)
+        if tag in self.XY:
+            n = struct.unpack(">i", body[0])[0]
+            m = struct.unpack(">i", body[1 + n])[0]
+            check(n == m and len(body) == 2 + n + m
+                  and all(len(f) == 8 for f in body[1:1 + n]
+                          + body[2 + n:]), f"telemetry: {tag} layout")
+        elif tag in ("setLaserLines", "setCovEllipse"):
+            rows, cols = (struct.unpack(">I", f)[0] for f in body[:2])
+            extra = 1 if tag == "setCovEllipse" else 0
+            check(len(body) == 2 + rows * cols + extra
+                  and all(len(f) == 4 for f in body[2:]),
+                  f"telemetry: {tag} layout")
+            check(rows == (4 if tag == "setLaserLines" else 2),
+                  f"telemetry: {tag} has {rows} rows")
+            if extra:
+                idx = struct.unpack(">i", body[-1])[0]
+                check(self.capacity is not None and 0 <= idx < self.capacity,
+                      f"telemetry: ellipse {idx} of {self.capacity}")
+        elif tag in self.WIDTHS:
+            check(len(frames) - 1 == len(self.WIDTHS[tag])
+                  and all(len(f) == w for f, w in zip(frames[1:],
+                                                      self.WIDTHS[tag])),
+                  f"telemetry: {tag} frames")
+            if tag == "covEllipseAdd":
+                self.capacity = body[0]
+            if tag in self.TURN:
+                self.turn[tag] = self.turn.get(tag, 0) + 1
+        elif tag == "setSimulationName":
+            check(len(body) == 1 and body[0], "telemetry: simulation name")
+        elif tag == "plot":
+            check(not body and self.turn == dict.fromkeys(self.TURN, 1),
+                  f"telemetry: a turn of {self.turn}")
+            self.turn, self.n_turns = {}, self.n_turns + 1
+        elif tag == "endPlot":
+            check(not body, "telemetry: endPlot frames")
+            self.done = True
+        else:
+            check(tag == "clear" and not body, f"telemetry: tag {tag!r}")
+
+
+def check_stream(dev) -> dict:
+    """Phase 14 (m): run_streaming of slices (a) and (h) on dense200,
+    seed 3, 160 supersteps, into a StrictGui; its setup first, one turn
+    per superstep, the clouds or the ellipses there. Beside it the same
+    run headless (its traces bit-equal to run's) and run itself, for
+    steps/s with and without telemetry, and the host reads per
+    superstep."""
+    import numpy as np
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import Runner
+    from slam_tpu_torch.runtime.telemetry import NetworkPlot
+
+    cfg, slam_map = dense200()
+    ticks = STREAM_SUPERSTEPS * cfg.steps_per_observe
+    setup = ["setPlotRange", "setSimulationName", "setCarSize",
+             "setCarSize", "setLandmarks", "setWaypoints"]
+    out = {}
+    for name, make, needs in (
+            ("stream-fs1", lambda: Runner(cfg, slam_map, "FASTSLAM1",
+                                          n_particles=P_SMALL),
+             ("setParticles", "setFeatureParticles")),
+            ("stream-ekf", lambda: ekf_runner((cfg, slam_map), False),
+             ("covEllipseAdd", "setCovEllipse"))):
+        ref = make().run(seed=3, n_ticks=ticks)
+        headless = make().run_streaming(seed=3, n_ticks=ticks)
+        for f in ref._fields[:9]:
+            check(np.array_equal(getattr(ref, f), getattr(headless, f)),
+                  f"{name}: the headless stream's {f} differs from run's")
+        gui = StrictGui()
+        kernels.reset_launch_counts()
+        res = make().run_streaming(seed=3, n_ticks=ticks, sim_name="dense200",
+                                   plot=NetworkPlot(socket=gui))
+        counts = kernels.launch_counts()
+        n = len(res.est_pose)
+        check(gui.done and gui.n_turns == n == STREAM_SUPERSTEPS,
+              f"{name}: {gui.n_turns} turns, {n} supersteps")
+        check(gui.tags[:len(setup)] == setup,
+              f"{name}: setup {gui.tags[:len(setup)]}")
+        for tag in needs:
+            check(gui.counts.get(tag, 0) > 0, f"{name}: no {tag}")
+        rates = {k: r.n_ticks / r.wall_seconds
+                 for k, r in (("run", ref), ("headless", headless),
+                              ("plot", res))}
+        out[name] = edge_slice(
+            counts, n, steps_per_s=rates,
+            host_reads_per_superstep={
+                k: r.host_syncs / len(r.est_pose)
+                for k, r in (("run", ref), ("headless", headless),
+                             ("plot", res))},
+            messages=sum(gui.counts.values()))
+        print(f"slice {name}: {json.dumps(out[name])}", flush=True)
+    check(out["stream-fs1"]["launches"]["K2"] == STREAM_SUPERSTEPS
+          and out["stream-fs1"]["launches"]["G1"] > 0,
+          f"stream-fs1: launches {out['stream-fs1']['launches']}")
+    check(not any(out["stream-ekf"]["launches"].values()),
+          f"stream-ekf: launches {out['stream-ekf']['launches']}")
+    return out
+
+
+def check_cli(tmp) -> dict:
+    """Phase 15 (n): the command line, as a user runs it: FASTSLAM1 on
+    dense200 (P = 100 from its .ini) with -ckpt to superstep 150, then
+    again to 200 under -profile (it resumes), whose trace must name the run's CUDA kernels K2 (fs1_observe_kernel) and
+    G1 (gather_kernel). Then time_phases on slice (a)."""
+    import glob
+    import inspect
+    import os
+
+    import numpy as np
+
+    from slam_tpu_torch.runtime import Runner
+    from slam_tpu_torch.runtime.profiling import time_phases
+
+    cfg, slam_map = dense200()
+    period = cfg.steps_per_observe
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    ck, prof = os.path.join(tmp, "cli", "run"), os.path.join(tmp, "prof")
+    out = {}
+    # The CLI's chunk: run_checkpointed's default; a run ends on a chunk.
+    every = inspect.signature(Runner.run_checkpointed).parameters[
+        "every"].default
+    start = 0
+    for ticks, extra in ((1200, ()), (1600, ("-profile", prof))):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "slam_tpu_torch", "-m", MAP, "-method",
+             "FASTSLAM1", "-seed", "3", "-ticks", str(ticks), "-ckpt", ck,
+             "-n", "cli", "-out", tmp, *extra],
+            capture_output=True, text=True, timeout=600, cwd=root, env=env)
+        check(proc.returncode == 0, f"cli -ticks {ticks}: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(ck + ".json") as fh:
+            at = json.load(fh)["superstep"]
+        rows = np.loadtxt(os.path.join(tmp, "cli", "errors.txt")).shape[0]
+        n = ticks // period
+        check(at == start + -(-(n - start) // every) * every
+              and rows == n - start,
+              f"cli -ticks {ticks}: checkpoint at {at}, {rows} rows")
+        start = at
+        check("on cuda" in proc.stderr, f"cli: not on the card: "
+              f"{proc.stderr[-500:]}")
+        out[f"ticks_{ticks}_s"] = time.perf_counter() - t0
+        print(f"cli -ticks {ticks} -ckpt{' -profile' if extra else ''}: "
+              f"checkpoint at superstep {at}, {rows} supersteps reported, "
+              f"{out[f'ticks_{ticks}_s']:.1f} s; "
+              f"{proc.stderr.strip().splitlines()[-2]}", flush=True)
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    check(len(traces) == 1, f"cli -profile: traces {traces}")
+    with open(traces[0]) as fh:
+        text = fh.read()
+    names = {k: text.count(f"{k}") for k in ("fs1_observe_kernel",
+                                              "gather_kernel")}
+    check(all(names.values()), f"cli -profile: kernel names in the trace "
+          f"{names}")
+    out.update(trace_bytes=len(text), trace_kernel_mentions=names)
+    del text
+    out["time_phases_a"] = time_phases(
+        Runner(cfg, slam_map, "FASTSLAM1", n_particles=P_SMALL), seed=3)
+    print(f"cli: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1879,6 +2374,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_ba_10k(dev, card)
 
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ckpt_deferred = check_ckpt_deferred(dev, tmp)
+        torch.cuda.empty_cache()
+        ckpt_small = check_ckpt_small(dev, tmp)
+        streams = check_stream(dev)
+        check_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # Main-path launches of each kernel: the sum of the counts of the
     # phase-4 runs. K1 lies on no path (the JAX package calls it only
     # from tests); every slice checks that it stayed at 0. The error is
@@ -1894,6 +2400,11 @@ def main() -> int:
                   "ekf-10k": ekf_10k}
     slices.update(ekf_slices)
     ekf_slices["ba-10k"] = None
+    # Phases 12-14: the checkpointed, resumed and streamed paths.
+    slices["ckpt-deferred"] = ckpt_deferred
+    slices.update(ckpt_small)
+    slices.update(streams)
+    ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None})
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()

@@ -1,18 +1,22 @@
 """Command-line shell of the port (counterpart: slam_tpu.cli).
 
-Flag-compatible with the JAX package's CLI for the ported slices:
-``-m <map.mat>``, ``-n <name>``, ``-method EKF1|FASTSLAM1|FASTSLAM2``
-(default EKF1; any other name runs the EKF, as in the JAX package),
-``-particles``, ``-ticks``, ``-seed``, ``-out``, and any config key as
-``-KEY value``. The map's ``<map>.ini`` is loaded when it exists. The run
-takes place on the card (``cuda``); without one the command fails with
-the reason on stderr and a non-zero exit code. ``-device cpu`` is the
-only way to a CPU run, ``-device cuda:1`` picks another card. The device
-is printed with the banner.
+Flag-compatible with the JAX package's CLI: ``-m <map.mat>``, ``-n
+<name>``, ``-method EKF1|FASTSLAM1|FASTSLAM2`` (default EKF1; any other
+name runs the EKF, as in the JAX package), ``-particles``, ``-ticks``,
+``-seed``, ``-out``, any config key as ``-KEY value``, and the run
+options ``-plot`` (stream the run to a slam-gui: the native publisher
+when its library loads, else the Python one), ``-profile <dir>`` (a
+profiler trace of the run) and ``-ckpt <path>`` (a checkpointed run
+that resumes from ``<path>`` when it exists). The map's ``<map>.ini``
+is loaded when it exists. The run takes place on the card (``cuda``);
+without one the command fails with the reason on stderr and a non-zero
+exit code. ``-device cpu`` is the only way to a CPU run, ``-device
+cuda:1`` picks another card. The device is printed with the banner.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -29,13 +33,13 @@ Usage: python -m slam_tpu_torch [options]
     -ticks <N>       max control ticks
     -seed <N>        PRNG seed
     -device <dev>    cuda | cuda:N | cpu (default: cuda; fails without a card)
+    -plot            stream ZMQ telemetry to a running slam-gui
+    -profile <dir>   write a torch.profiler trace of the run into <dir>
+    -ckpt <path>     checkpoint path prefix (a chunked run that resumes)
     -out <dir>       report output directory (default .)
     -KEY <value>     override any config key (e.g. -SWITCH_HEADING_KNOWN 0)
     -h               this help
 """
-
-# Flags of the JAX CLI whose subsystems are not ported yet (ROADMAP.md).
-_NOT_PORTED = ("plot", "profile", "ckpt")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -43,12 +47,9 @@ def main(argv: list[str] | None = None) -> int:
     if "-h" in argv or "--help" in argv:
         print(USAGE)
         return 0
-    flags = apply_cli_overrides(argv)
-    for name in _NOT_PORTED:
-        if name in flags or f"-{name}" in argv:
-            print(f"error: -{name} is not ported to slam_tpu_torch yet "
-                  "(see ROADMAP.md)", file=sys.stderr)
-            return 2
+    use_plot = "-plot" in argv
+    # A switch without a value must not take the next token as its value.
+    flags = apply_cli_overrides([a for a in argv if a != "-plot"])
 
     map_path = flags.pop("m", None)
     if not map_path:
@@ -66,6 +67,8 @@ def main(argv: list[str] | None = None) -> int:
     seed = int(flags.pop("seed", 0))
     out_dir = flags.pop("out", ".")
     device = flags.pop("device", None)
+    profile_dir = flags.pop("profile", None)
+    ckpt_path = flags.pop("ckpt", None)
 
     from slam_tpu_torch.device import default_device
     try:
@@ -90,8 +93,28 @@ def main(argv: list[str] | None = None) -> int:
           f"{slam_map.n_waypoints} waypoints) on {runner.device}",
           file=sys.stderr)
 
-    result = runner.run(seed=seed,
-                        n_ticks=int(n_ticks) if n_ticks else None)
+    profiler = contextlib.nullcontext()
+    if profile_dir:
+        from slam_tpu_torch.runtime.profiling import trace
+        profiler = trace(profile_dir)
+    nt = int(n_ticks) if n_ticks else None
+    with profiler:
+        if use_plot:
+            try:
+                from slam_tpu_torch.runtime.native import NativeNetworkPlot
+                plot = NativeNetworkPlot()
+            except OSError:
+                from slam_tpu_torch.runtime.telemetry import NetworkPlot
+                plot = NetworkPlot()
+            result = runner.run_streaming(seed=seed, plot=plot,
+                                          sim_name=sim_name, n_ticks=nt)
+            plot.close()
+        elif ckpt_path:
+            result = runner.run_checkpointed(seed=seed, n_ticks=nt,
+                                             ckpt_path=ckpt_path,
+                                             resume=True)
+        else:
+            result = runner.run(seed=seed, n_ticks=nt)
     metrics = compute_metrics(result)
     print(metrics.summary(), file=sys.stderr)
     path = write_report(result, sim_name, out_dir)

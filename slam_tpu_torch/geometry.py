@@ -1,4 +1,6 @@
-"""Geometry primitives of the slice (counterpart: slam_tpu.geometry)."""
+"""Geometry primitives (counterpart: slam_tpu.geometry): the angle wrap,
+and the plot geometry the streaming run draws with. Every function is
+batched and runs on any device."""
 
 from __future__ import annotations
 
@@ -37,3 +39,54 @@ def wrap_angle_fast(ang: torch.Tensor) -> torch.Tensor:
                     torch.where((s < 0) & (s > -m), s + m,
                                 torch.remainder(s, m))))
     return r - PI
+
+
+def transform_to_global(points: torch.Tensor, pose: torch.Tensor
+                        ) -> torch.Tensor:
+    """Rotate and translate local points [..., 2] into the global frame
+    of ``pose`` [3] = (x, y, theta)."""
+    c, s = torch.cos(pose[2]), torch.sin(pose[2])
+    x = points[..., 0] * c - points[..., 1] * s + pose[0]
+    y = points[..., 0] * s + points[..., 1] * c + pose[1]
+    return torch.stack([x, y], dim=-1)
+
+
+def laser_lines(z: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Observation rays for plotting: for each (range, bearing) row of
+    ``z`` [K, 2], the segment from the pose to the observed point, as
+    [K, 4] rows (x0, y0, x1, y1)."""
+    local = torch.stack([z[..., 0] * torch.cos(z[..., 1]),
+                         z[..., 0] * torch.sin(z[..., 1])], dim=-1)
+    pts = transform_to_global(local, pose)
+    origin = pose[:2].expand(pts.shape)
+    return torch.cat([origin, pts], dim=-1)
+
+
+def sqrtm_2x2_psd(P: torch.Tensor) -> torch.Tensor:
+    """Closed-form principal square root of symmetric PSD 2x2 matrices
+    [..., 2, 2]: (M + sqrt(det) I) / sqrt(trace + 2 sqrt(det)), with
+    the determinant clamped at 0 and the root's argument at 1e-30 (a
+    zero matrix gives zero)."""
+    a = P[..., 0, 0]
+    b = P[..., 0, 1]
+    c = P[..., 1, 1]
+    s = torch.sqrt(torch.clamp_min(a * c - b * b, 0.0))
+    t = torch.sqrt(torch.clamp_min(a + c + 2.0 * s, 1e-30))
+    eye = torch.eye(2, dtype=P.dtype, device=P.device)
+    return (P + s[..., None, None] * eye) / t[..., None, None]
+
+
+def covariance_ellipse(center: torch.Tensor, P: torch.Tensor,
+                       n_segments: int = 16, scale: float = 2.0
+                       ) -> torch.Tensor:
+    """The 2-sigma covariance ellipse polyline of each ``center``
+    [..., 2] and covariance ``P`` [..., 2, 2]: [..., n_segments + 1, 2]
+    points. The product with the square root is written out, so no
+    matrix unit (or TF32) is involved."""
+    r = sqrtm_2x2_psd(P)[..., None, :, :]
+    phi = torch.linspace(0.0, TWO_PI, n_segments + 1, dtype=P.dtype,
+                         device=P.device)
+    c, s = torch.cos(phi), torch.sin(phi)
+    x = c * r[..., 0, 0] + s * r[..., 0, 1]
+    y = c * r[..., 1, 0] + s * r[..., 1, 1]
+    return center[..., None, :] + scale * torch.stack([x, y], dim=-1)

@@ -1,0 +1,208 @@
+"""Checkpoint and resume of a run (counterpart:
+slam_tpu.runtime.checkpoint).
+
+A checkpoint is the JAX package's layout: ``<path>.npz``
+(``np.savez_compressed``) holding ``key``, ``sim_i`` and ``est_i``, and
+``<path>.json`` holding ``superstep``, ``n_sim_leaves``, ``n_est_leaves``
+and ``meta``. The leaves follow the JAX package's order:
+
+- ``sim_0`` .. ``sim_6``: the vehicle's ``pose``, ``steer``,
+  ``waypoint``, ``loops`` and ``done``, then the simulator's noise
+  stream, then ``tick``;
+- ``est_i``: the estimator state's tensors, its fields depth first
+  (``ParticleState``: logw, xv, Pv, lm, lm_P, n, da_table; ``EKFState``:
+  x, P, n, da_table; ``DeferredState``: ps, then S);
+- ``key``: the run's random stream.
+
+A stream is a ``torch.Generator``, saved as ``get_state()``. Host values
+in the estimator state (``DeferredState.pending``,
+``ShardedEKFState.hk_n``) go into the manifest as ``est_host``, and the
+device type that wrote the checkpoint as ``device_type``: a CUDA
+generator's state (Philox seed and offset, 16 bytes) means nothing to a
+CPU generator (5,056 bytes of Mersenne twister) and the other way round,
+so a checkpoint loads only on the device type that wrote it.
+
+Restoring a checkpoint reproduces the unbroken run bit for bit: every
+random draw comes from the two saved streams, and the kernels are
+deterministic.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from slam_tpu_torch.device import default_device
+from slam_tpu_torch.models.ekf import EKFState, ekf_state_from_numpy
+from slam_tpu_torch.models.particles import (
+    DeferredState,
+    ParticleState,
+    deferred_state_from_numpy,
+    state_from_numpy,
+)
+from slam_tpu_torch.sim.simulator import SimState
+from slam_tpu_torch.sim.vehicle import VehicleState
+
+N_SIM_LEAVES = len(VehicleState._fields) + 2
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _sim_leaves(sim_state: SimState) -> list:
+    return [*(_host(t) for t in sim_state.vehicle),
+            _host(sim_state.generator.get_state()),
+            np.asarray(sim_state.tick, np.int32)]
+
+
+def _est_leaves(tree, arrays: list, host: list) -> None:
+    """The tensors of a state, its fields depth first, into ``arrays``;
+    its host values (bools and ints) into ``host``."""
+    for v in tree:
+        if isinstance(v, tuple):
+            _est_leaves(v, arrays, host)
+        elif isinstance(v, torch.Tensor):
+            arrays.append(_host(v))
+        else:
+            host.append(v)
+
+
+def _est_rebuild(template, arrays, host, device):
+    """``template`` with its tensors and host values replaced, in the
+    order ``_est_leaves`` takes them, from the iterators given."""
+    out = []
+    for v in template:
+        if isinstance(v, tuple):
+            out.append(_est_rebuild(v, arrays, host, device))
+        elif isinstance(v, torch.Tensor):
+            a = next(arrays)
+            if a.shape != tuple(v.shape):
+                raise ValueError(f"checkpoint leaf of shape {a.shape} where "
+                                 f"the run has {tuple(v.shape)}")
+            out.append(torch.from_numpy(a).to(device))
+        else:
+            out.append(type(v)(next(host)))
+    return type(template)(*out)
+
+
+def _generator(state: np.ndarray, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.set_state(torch.from_numpy(np.ascontiguousarray(state)))
+    return gen
+
+
+def save_checkpoint(path: str, sim_state: SimState, est_state, gen,
+                    superstep: int, meta: dict | None = None) -> str:
+    """Write ``<path>.npz`` and ``<path>.json``: the simulator state,
+    the estimator state, the run generator ``gen`` and the superstep
+    reached. Returns the npz path."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    est, host = [], []
+    _est_leaves(est_state, est, host)
+    sim = _sim_leaves(sim_state)
+    arrays = {"key": _host(gen.get_state())}
+    arrays.update({f"sim_{i}": a for i, a in enumerate(sim)})
+    arrays.update({f"est_{i}": a for i, a in enumerate(est)})
+    np.savez_compressed(path + ".npz", **arrays)
+    manifest = {
+        "superstep": int(superstep),
+        "n_sim_leaves": len(sim),
+        "n_est_leaves": len(est),
+        "meta": meta or {},
+        "est_host": host,
+        "device_type": gen.device.type,
+    }
+    with open(path + ".json", "w") as fh:
+        json.dump(manifest, fh)
+    return path + ".npz"
+
+
+def load_checkpoint(path: str, sim_template: SimState, est_template,
+                    device=None):
+    """(sim_state, est_state, gen, superstep) from ``path`` (without
+    extensions), every tensor on ``device`` (none named: the card,
+    ``default_device``). ``est_template`` (a fresh ``init()`` output)
+    gives the estimator state's structure; the simulator state's is
+    fixed, and ``sim_template`` is taken for the JAX signature. Raises ``ValueError`` when the structure differs or
+    the checkpoint was written on another device type."""
+    device = default_device(device)
+    with open(path + ".json") as fh:
+        manifest = json.load(fh)
+    wrote = manifest.get("device_type")
+    if wrote != device.type:
+        raise ValueError(
+            f"checkpoint {path} was written on a {wrote} device and cannot "
+            f"load on {device}: its random streams are {wrote} generator "
+            "states")
+    est_n, host_n = [], []
+    _est_leaves(est_template, est_n, host_n)
+    if (manifest["n_sim_leaves"] != N_SIM_LEAVES
+            or manifest["n_est_leaves"] != len(est_n)
+            or len(manifest["est_host"]) != len(host_n)):
+        raise ValueError(f"checkpoint {path}: structure mismatch")
+    with np.load(path + ".npz") as data:
+        sim = [data[f"sim_{i}"] for i in range(N_SIM_LEAVES)]
+        est = [data[f"est_{i}"] for i in range(len(est_n))]
+        key = data["key"]
+    vehicle = VehicleState(*(torch.from_numpy(a).to(device)
+                             for a in sim[:len(VehicleState._fields)]))
+    sim_state = SimState(vehicle=vehicle,
+                         generator=_generator(sim[-2], device),
+                         tick=int(sim[-1]))
+    est_state = _est_rebuild(est_template, iter(est),
+                             iter(manifest["est_host"]), device)
+    return (sim_state, est_state, _generator(key, device),
+            manifest["superstep"])
+
+
+def load_jax_checkpoint(path: str, sim_template: SimState, est_template,
+                        seed: int, device=None):
+    """(sim_state, est_state, gen, superstep) from a checkpoint that the
+    JAX package's ``save_checkpoint`` wrote, on ``device`` (none named:
+    the card).
+
+    The vehicle leaves, ``tick``, ``superstep`` and the estimator's
+    leaves carry over, through ``state_from_numpy``,
+    ``deferred_state_from_numpy`` or ``ekf_state_from_numpy`` by the
+    template's type; a deferred carry's TPU window metadata (``lo``,
+    ``nch``, ``ident``) is dropped. The random streams do not carry
+    over: a threefry key cannot become a Philox stream, so the
+    simulator's generator and the run generator both start from
+    ``seed`` (``seed`` and ``seed + 1``, as a fresh run seeds them). A
+    continued run is therefore a run from the same state, not the JAX
+    run's own continuation, unless it draws no random numbers."""
+    device = default_device(device)
+    with open(path + ".json") as fh:
+        manifest = json.load(fh)
+    with np.load(path + ".npz") as data:
+        sim = [data[f"sim_{i}"] for i in range(manifest["n_sim_leaves"])]
+        est = [data[f"est_{i}"] for i in range(manifest["n_est_leaves"])]
+    n_vehicle = len(VehicleState._fields)
+    if len(sim) != n_vehicle + 2:
+        raise ValueError(f"checkpoint {path}: {len(sim)} simulator leaves, "
+                         f"want {n_vehicle + 2}")
+    vehicle = VehicleState(*(torch.from_numpy(np.array(a, copy=True))
+                             .to(device) for a in sim[:n_vehicle]))
+    sim_state = SimState(
+        vehicle=vehicle,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        tick=int(sim[-1]))
+    ps_fields = ParticleState._fields
+    if isinstance(est_template, DeferredState):
+        est_state = deferred_state_from_numpy(
+            {"ps": dict(zip(ps_fields, est)), "S": est[len(ps_fields)]},
+            device)
+    elif isinstance(est_template, ParticleState):
+        est_state = state_from_numpy(dict(zip(ps_fields, est)), device)
+    elif isinstance(est_template, EKFState):
+        est_state = ekf_state_from_numpy(dict(zip(EKFState._fields, est)),
+                                         device)
+    else:
+        raise ValueError(f"no JAX checkpoint layout for "
+                         f"{type(est_template).__name__}")
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return sim_state, est_state, gen, manifest["superstep"]

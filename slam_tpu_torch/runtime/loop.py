@@ -11,14 +11,17 @@ a particle count that is a multiple of 1024 predicts all the ticks of a
 superstep in one call after them, as the JAX runner's
 ``_superstep_multi`` does; an EKF never does. Everything stays on the
 run's device; the per-superstep traces are written into preallocated
-device buffers and copied to the host once, at the end.
-The only host syncs inside the loop are the particle filters' gates
-(``rbpf.host_bool``), counted in ``RunResult.host_syncs``; an EKF has
-none.
+device buffers and copied to the host once, at the end of the run
+(``run``) or of each chunk (``run_checkpointed``, which saves a
+checkpoint there). The only host syncs inside the loop are the particle
+filters' gates (``rbpf.host_bool``), counted in
+``RunResult.host_syncs``; an EKF has none. ``run_streaming``
+(``runtime.stream``) adds one telemetry read per superstep.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, NamedTuple
 
@@ -140,72 +143,163 @@ class Runner:
         ctl = torch.stack([torch.stack(vs), torch.stack(gs)], dim=1)
         return sim_state, self.est.predict_multi(est_state, gen, ctl), dr
 
+    def _init(self, seed: int):
+        """Build the kernels (on the card), then the run's start: (sim
+        state, estimator state, run generator, build seconds)."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from slam_tpu_torch.ops.kernels import build
+            build.load_library()
+        build_s = time.perf_counter() - t0
+        sim_state = self.sim.init(seed=seed or self.config.SWITCH_SEED_RANDOM)
+        est_state = self.est.init(self.n_particles)
+        return (sim_state, est_state, self.sim.make_generator(seed + 1),
+                build_s)
+
+    def _superstep_for(self, est_state):
+        """The superstep the estimator takes: ``_superstep_multi`` for a
+        particle filter with ``predict_multi`` at a P that is a multiple
+        of MULTI_ALIGN, else ``_superstep``."""
+        P = getattr(getattr(est_state, "ps", est_state), "n_particles", 0)
+        if (hasattr(self.est, "predict_multi")
+                and not getattr(self.est, "IS_EKF", False)
+                and P % MULTI_ALIGN == 0):
+            return self._superstep_multi
+        return self._superstep
+
+    def _step(self, superstep, sim_state, est_state, gen):
+        """One superstep, observation and update: (sim state, estimator
+        state, the superstep's trace row as a tuple of device tensors in
+        RunResult's order)."""
+        sim_state, est_state, dr = superstep(sim_state, est_state, gen)
+        sim_state, obs = self.sim.observe_step(sim_state)
+        est_state = self.est.update(est_state, gen, obs.z, obs.ids,
+                                    obs.mask)
+        out = (sim_state.vehicle.pose, self.est.pose(est_state),
+               ~sim_state.vehicle.done, obs.count,
+               torch.sum(torch.where(obs.mask, obs.z[:, 0], 0.0)),
+               obs.z, obs.mask, obs.ids, dr)
+        return sim_state, est_state, out
+
+    def _chunk(self, superstep, sim_state, est_state, gen, n: int):
+        """``n`` supersteps, their traces written into preallocated device
+        buffers: (sim state, estimator state, the nine trace buffers)."""
+        K, dev = self.sim.max_obs, self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        traces = (torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
+                  torch.empty(n, dtype=torch.bool, device=dev),
+                  torch.empty(n, dtype=torch.int32, device=dev),
+                  torch.empty(n, **f32), torch.empty((n, K, 2), **f32),
+                  torch.empty((n, K), dtype=torch.bool, device=dev),
+                  torch.empty((n, K), dtype=torch.int32, device=dev),
+                  torch.empty((n, 3), **f32))
+        for i in range(n):
+            sim_state, est_state, out = self._step(superstep, sim_state,
+                                                   est_state, gen)
+            for buf, value in zip(traces, out):
+                buf[i] = value
+        return sim_state, est_state, traces
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def run(self, seed: int = 0, n_ticks: int | None = None) -> RunResult:
-        cfg = self.config
-        period = cfg.steps_per_observe
+        period = self.config.steps_per_observe
         if n_ticks is None:
             n_ticks = self.estimate_run_ticks()
         T = n_ticks // period
-        dev = self.device
-
-        t0 = time.perf_counter()
-        if dev.type == "cuda":
-            from slam_tpu_torch.ops.kernels import build
-            build.load_library()
-        t1 = time.perf_counter()
-
-        sim_state = self.sim.init(seed=seed or cfg.SWITCH_SEED_RANDOM)
-        est_state = self.est.init(self.n_particles)
-        P = getattr(getattr(est_state, "ps", est_state), "n_particles", 0)
-        superstep = (self._superstep_multi
-                     if hasattr(self.est, "predict_multi")
-                     and not getattr(self.est, "IS_EKF", False)
-                     and P % MULTI_ALIGN == 0 else self._superstep)
-        gen = self.sim.make_generator(seed + 1)
-        K = self.sim.max_obs
-        f32 = dict(dtype=torch.float32, device=dev)
-        true_pose = torch.empty((T, 3), **f32)
-        est_pose = torch.empty((T, 3), **f32)
-        active = torch.empty(T, dtype=torch.bool, device=dev)
-        obs_count = torch.empty(T, dtype=torch.int32, device=dev)
-        range_sum = torch.empty(T, **f32)
-        obs_z = torch.empty((T, K, 2), **f32)
-        obs_mask = torch.empty((T, K), dtype=torch.bool, device=dev)
-        obs_ids = torch.empty((T, K), dtype=torch.int32, device=dev)
-        odom = torch.empty((T, 3), **f32)
-
+        sim_state, est_state, gen, build_s = self._init(seed)
+        superstep = self._superstep_for(est_state)
         syncs0 = rbpf.host_bool.count
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        for i in range(T):
-            sim_state, est_state, dr = superstep(sim_state, est_state, gen)
-            sim_state, obs = self.sim.observe_step(sim_state)
-            est_state = self.est.update(est_state, gen, obs.z, obs.ids,
-                                        obs.mask)
-            true_pose[i] = sim_state.vehicle.pose
-            est_pose[i] = self.est.pose(est_state)
-            active[i] = ~sim_state.vehicle.done
-            obs_count[i] = obs.count
-            range_sum[i] = torch.sum(torch.where(obs.mask, obs.z[:, 0],
-                                                 0.0))
-            obs_z[i] = obs.z
-            obs_mask[i] = obs.mask
-            obs_ids[i] = obs.ids
-            odom[i] = dr
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        syncs = rbpf.host_bool.count - syncs0
+        self._sync()
+        t0 = time.perf_counter()
+        sim_state, est_state, traces = self._chunk(superstep, sim_state,
+                                                   est_state, gen, T)
+        self._sync()
+        wall = time.perf_counter() - t0
+        return run_result(to_host(traces), est_state, T * period, wall,
+                          build_s, rbpf.host_bool.count - syncs0)
 
-        def host(t):
-            return t.cpu().numpy()
+    def run_checkpointed(self, seed: int = 0, n_ticks: int | None = None,
+                         every: int = 50, ckpt_path: str = "ckpt/run",
+                         resume: bool = False) -> RunResult:
+        """The run in chunks of ``every`` supersteps, with a checkpoint
+        (``runtime.checkpoint``) after each; with ``resume``, from the
+        checkpoint at ``ckpt_path`` if there is one. A resumed run equals
+        the unbroken run bit for bit.
 
-        return RunResult(
-            true_pose=host(true_pose), est_pose=host(est_pose),
-            active=host(active), obs_count=host(obs_count),
-            obs_range_sum=host(range_sum), obs_z=host(obs_z),
-            obs_mask=host(obs_mask), obs_ids=host(obs_ids),
-            odom=host(odom), final_state=est_state, n_ticks=T * period,
-            wall_seconds=t3 - t2, compile_seconds=t1 - t0,
-            host_syncs=syncs)
+        The JAX package's semantics: only whole chunks run, so when
+        ``every`` does not divide the supersteps the last chunk runs past
+        them, and the final state and the saved ``superstep`` are after
+        that overshoot, while the traces stop at the run's supersteps; a
+        resumed run returns the traces from its start on. Resuming from a
+        checkpoint that has already finished raises ``ValueError`` (the
+        JAX package raises one too, from an empty ``np.concatenate``).
+
+        ``wall_seconds`` covers every chunk with its trace copy and
+        save; ``host_syncs`` counts the gates, as in ``run`` (a run of one
+        chunk reads the same as ``run``)."""
+        from slam_tpu_torch.runtime.checkpoint import (
+            load_checkpoint,
+            save_checkpoint,
+        )
+
+        period = self.config.steps_per_observe
+        if n_ticks is None:
+            n_ticks = self.estimate_run_ticks()
+        n_supersteps = n_ticks // period
+        sim_state, est_state, gen, build_s = self._init(seed)
+        start = 0
+        if resume and os.path.exists(ckpt_path + ".json"):
+            sim_state, est_state, gen, start = load_checkpoint(
+                ckpt_path, sim_state, est_state, self.device)
+            if start >= n_supersteps:
+                raise ValueError(
+                    f"checkpoint {ckpt_path} has already finished: it is "
+                    f"at superstep {start} of {n_supersteps}")
+        superstep = self._superstep_for(est_state)
+        syncs0 = rbpf.host_bool.count
+        self._sync()
+        t0 = time.perf_counter()
+        chunks, done = [], start
+        while done < n_supersteps:
+            sim_state, est_state, traces = self._chunk(
+                superstep, sim_state, est_state, gen, every)
+            chunks.append(to_host(traces))
+            done += every
+            save_checkpoint(ckpt_path, sim_state, est_state, gen, done,
+                            meta={"method": self.method, "seed": seed})
+        wall = time.perf_counter() - t0
+        n_keep = n_supersteps - start
+        traces = [np.concatenate([c[i] for c in chunks])[:n_keep]
+                  for i in range(len(chunks[0]))]
+        return run_result(traces, est_state, n_keep * period, wall, build_s,
+                          rbpf.host_bool.count - syncs0)
+
+    def run_streaming(self, seed: int = 0, n_ticks: int | None = None,
+                      plot=None, sim_name: str = "simulation"
+                      ) -> RunResult:
+        """One superstep at a time with live telemetry to a slam-gui
+        (``runtime.stream``); ``plot``: a ``telemetry.NetworkPlot`` or
+        ``native.NativeNetworkPlot``, or None for none."""
+        from slam_tpu_torch.runtime.stream import stream_run
+        return stream_run(self, seed=seed, n_ticks=n_ticks, plot=plot,
+                          sim_name=sim_name)
+
+
+def to_host(tensors) -> list:
+    return [t.cpu().numpy() for t in tensors]
+
+
+def run_result(traces, final_state, n_ticks: int, wall: float,
+               build_s: float, host_syncs: int) -> RunResult:
+    """A RunResult from the nine traces (numpy, RunResult's order)."""
+    (true_pose, est_pose, active, obs_count, range_sum, obs_z, obs_mask,
+     obs_ids, odom) = traces
+    return RunResult(
+        true_pose=true_pose, est_pose=est_pose, active=active,
+        obs_count=obs_count, obs_range_sum=range_sum, obs_z=obs_z,
+        obs_mask=obs_mask, obs_ids=obs_ids, odom=odom,
+        final_state=final_state, n_ticks=n_ticks, wall_seconds=wall,
+        compile_seconds=build_s, host_syncs=host_syncs)

@@ -1,6 +1,11 @@
 """Device time on the card, from ``torch.profiler``: per call of a
-function, and per superstep of a run.
+function, and per superstep of a run (counterpart:
+slam_tpu.runtime.profiling, whose ``trace`` and ``time_phases`` are
+here too).
 
+``trace(log_dir)`` writes a profiler trace of a block (the CLI's
+``-profile``); ``time_phases(runner)`` is the median host time of a
+predict tick, an observe update and a superstep.
 ``kernel_times(prof)`` sums a profile's kernels by name;
 ``device_ms(fn)`` is the mean device time of one call of ``fn`` (the
 kernels it ran, summed). ``main`` profiles the run loop of one slice,
@@ -44,6 +49,7 @@ DIR`` also writes the per-kernel table there. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -51,7 +57,11 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import (
+    ProfilerActivity,
+    profile,
+    tensorboard_trace_handler,
+)
 
 
 def kernel_times(prof) -> dict:
@@ -98,6 +108,93 @@ def events_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A trace of the enclosed block: ``torch.profiler`` with the CPU
+    and (with a card) the CUDA activities, written into ``log_dir`` by
+    ``tensorboard_trace_handler`` as a ``*.pt.trace.json`` file (the
+    Chrome trace format: TensorBoard's profiler plugin or Perfetto open
+    it). Every kernel the card ran is in it by name."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def _clone(tree):
+    """A copy of a state: its tensors cloned, its generators' states
+    copied, its host values as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, torch.Generator):
+        gen = torch.Generator(device=tree.device)
+        gen.set_state(tree.get_state())
+        return gen
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone(v) for v in tree))
+    return tree
+
+
+def _time_call(fn, make_args, device, warmup: int = 1,
+               iters: int = 10) -> float:
+    """Median host seconds of ``fn(*make_args())``, each call ended by a
+    device sync. The arguments are made (copied) before the clock
+    starts, so a function that writes its state in place times the
+    same work every iteration."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        fn(*make_args())
+    times = []
+    for _ in range(iters):
+        args = make_args()
+        sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_phases(runner, seed: int = 0, iters: int = 10) -> dict:
+    """The median host seconds of one predict tick, one observe update
+    and one whole superstep of ``runner``'s estimator, after three
+    supersteps from ``seed`` (counterpart:
+    slam_tpu.runtime.profiling.time_phases, with its keys). Each call
+    gets a fresh copy of the state (K2, K4 and K6 write in place)."""
+    sim_state, est_state, gen, _ = runner._init(seed)
+    superstep = runner._superstep_for(est_state)
+    for _ in range(3):
+        sim_state, est_state, _ = runner._step(superstep, sim_state,
+                                               est_state, gen)
+    sim_next, controls = runner.sim.control_step(_clone(sim_state))
+    phi = sim_next.vehicle.pose[2]
+    sim_next, obs = runner.sim.observe_step(sim_next)
+    est, dev = runner.est, runner.device
+
+    def state():
+        return _clone(est_state), _clone(gen)
+
+    return {
+        "predict_tick_s": _time_call(
+            lambda s, g: est.predict(s, g, controls.v_noisy,
+                                     controls.g_noisy, phi),
+            state, dev, iters=iters),
+        "observe_update_s": _time_call(
+            lambda s, g: est.update(s, g, obs.z, obs.ids, obs.mask),
+            state, dev, iters=iters),
+        "superstep_s": _time_call(
+            lambda sim, s, g: runner._step(superstep, sim, s, g),
+            lambda: (_clone(sim_state), *state()), dev, iters=iters),
+        "steps_per_observe": runner.config.steps_per_observe,
+    }
 
 
 SLICES = ("config5", "eager-small", "fs2-small", "ekf-webmap", "ekf-10k",

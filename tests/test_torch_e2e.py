@@ -28,6 +28,17 @@ SEEDS = (3, 4, 5)
 MARGIN = 2.0
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's runs here are small: on one thread they are faster,
+    and do not compete with the JAX side's thread pool."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ring40():
     """data/ring40 read by each package's own config and map reader:
@@ -286,3 +297,127 @@ def test_port_never_imports_jax(tmp_path):
                           text=True, env=_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
+
+
+# --- the run options: -ckpt, -plot, -profile -------------------------------
+
+def _cli(tmp_path, *args):
+    import slam_tpu_torch.cli as tcli
+    return tcli.main(["-m", os.path.join(DATA, "ring40.mat"), "-device",
+                      "cpu", "-n", "run", "-out", str(tmp_path), *args])
+
+
+def test_cli_ckpt_resumes_on_the_second_call(tmp_path):
+    """-ckpt runs in chunks of 50 supersteps (400 ticks); a second call
+    with twice the ticks resumes from the first one's checkpoint and
+    reports only the supersteps it ran."""
+    import json
+
+    ck = str(tmp_path / "ck" / "run")
+    args = ("-method", "FASTSLAM1", "-particles", "8", "-seed", "3",
+            "-ckpt", ck)
+    assert _cli(tmp_path, "-ticks", "400", *args) == 0
+    with open(ck + ".json") as fh:
+        assert json.load(fh)["superstep"] == 50
+    assert np.loadtxt(tmp_path / "run" / "errors.txt").shape[0] == 50
+    assert _cli(tmp_path, "-ticks", "800", *args) == 0
+    with open(ck + ".json") as fh:
+        manifest = json.load(fh)
+    assert manifest["superstep"] == 100
+    assert manifest["meta"] == {"method": "FASTSLAM1", "seed": 3}
+    assert np.loadtxt(tmp_path / "run" / "errors.txt").shape[0] == 50
+
+
+@pytest.mark.parametrize("publisher", ["native", "python"])
+def test_cli_plot_streams_to_the_publisher(tmp_path, monkeypatch,
+                                           publisher):
+    """-plot takes the native publisher when it loads, else the Python
+    one (the order of the JAX CLI); both are replaced by capture
+    sockets here. The messages pass the GUI's dispatch checks, one turn
+    per superstep."""
+    import test_golden_frames as golden
+    import test_telemetry
+
+    import slam_tpu_torch.runtime.native as native
+    import slam_tpu_torch.runtime.telemetry as telemetry
+
+    sock = golden._CaptureSocket()
+    capture = telemetry.NetworkPlot(socket=sock)
+    if publisher == "native":
+        monkeypatch.setattr(native, "NativeNetworkPlot", lambda: capture)
+    else:
+        def unavailable():
+            raise OSError("libslam_native.so unavailable")
+        monkeypatch.setattr(native, "NativeNetworkPlot", unavailable)
+        monkeypatch.setattr(telemetry, "NetworkPlot", lambda: capture)
+    assert _cli(tmp_path, "-plot", "-method", "FASTSLAM1", "-particles",
+                "8", "-ticks", "80") == 0
+    ctrl = test_telemetry.StrictController()
+    for frames in sock.sent:
+        ctrl.feed(frames)
+    assert ctrl.done and ctrl.n_turns == 10
+    assert ("setSimulationName", [b"run"]) in [
+        (m[0].decode(), m[1:]) for m in sock.sent]
+
+
+def test_cli_plot_does_not_swallow_the_next_flag(tmp_path, monkeypatch):
+    """-plot takes no value: the flag after it keeps its own (here
+    -method FASTSLAM1, not the EKF default), as in the JAX CLI."""
+    import test_golden_frames as golden
+
+    import slam_tpu_torch.runtime as rt
+    import slam_tpu_torch.runtime.native as native
+    import slam_tpu_torch.runtime.telemetry as telemetry
+
+    sock = golden._CaptureSocket()
+    monkeypatch.setattr(native, "NativeNetworkPlot",
+                        lambda: telemetry.NetworkPlot(socket=sock))
+    built = []
+
+    class Recording(rt.Runner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append((type(self.est).__name__, self.n_particles))
+    monkeypatch.setattr(rt, "Runner", Recording)
+    assert _cli(tmp_path, "-plot", "-method", "FASTSLAM1", "-plot",
+                "-particles", "8", "-ticks", "16") == 0
+    assert built == [("FastSlam1", 8)]
+    assert [m[0] for m in sock.sent].count(b"plot") == 2
+
+
+def test_cli_profile_writes_a_trace(tmp_path):
+    """-profile DIR: a torch.profiler trace of the run, in the Chrome
+    trace format, with the run's operators in it."""
+    import json
+
+    assert _cli(tmp_path, "-method", "FASTSLAM1", "-particles", "8",
+                "-ticks", "16", "-profile", str(tmp_path / "prof")) == 0
+    files = os.listdir(tmp_path / "prof")
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    with open(tmp_path / "prof" / files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert (tmp_path / "run" / "results.txt").exists()
+
+
+@pytest.mark.parametrize("method", ["FASTSLAM1", "EKF1"])
+def test_time_phases_has_the_jax_keys(ring40, method):
+    """time_phases on the CPU: JAX's keys, positive medians, and the
+    runner's state untouched by the timed calls (each gets a copy)."""
+    import inspect
+
+    from slam_tpu.runtime import profiling as jprof
+    from slam_tpu_torch.runtime import Runner
+    from slam_tpu_torch.runtime import profiling as tprof
+
+    assert (list(inspect.signature(tprof.time_phases).parameters)
+            == list(inspect.signature(jprof.time_phases).parameters))
+    cfg, slam_map = ring40["port"]
+    runner = Runner(cfg, slam_map, method, n_particles=8, device="cpu")
+    phases = tprof.time_phases(runner, seed=3, iters=3)
+    assert set(phases) == {"predict_tick_s", "observe_update_s",
+                           "superstep_s", "steps_per_observe"}
+    assert phases["steps_per_observe"] == cfg.steps_per_observe
+    assert all(phases[k] > 0 for k in ("predict_tick_s", "observe_update_s",
+                                       "superstep_s"))
