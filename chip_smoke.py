@@ -158,6 +158,21 @@ Phases, in order; any failure raises and exits non-zero:
    DIR2 (it resumes): the checkpoint's superstep and the supersteps
    reported must follow, and the trace must name K2 and G1
    (fs1_observe_kernel, gather_kernel). Then time_phases on slice (a).
+16. The sharded filters (slam_tpu_torch.parallel), in one NCCL process
+   group of one rank (init_distributed with no device named; the card's
+   machine holds one H100, and NCCL runs one rank per device): K4's
+   cross-shard weight arm at K=96, L=192, P=2^20 bit-equal to the
+   in-place K4 and within TOL of its twin's arm (the planes, and the
+   weights' delta), timed beside it; then through Runner, no device
+   named, one host sync per superstep each: (o) sharded-fs1,
+   ShardedFastSlam1 on (b)'s world and P (K4 and G2, K4 once per
+   superstep), (p) sharded-fs2-small, ShardedFastSlam2 on (e)'s (K3, K2
+   once per superstep, G1), (q) sharded-lm-config5,
+   LandmarkShardedFastSlam1 on a (1, 1) mesh at config #5's world and
+   width (capacity 192, 96 observations, P=2^20, 32 supersteps, seed 3;
+   K4 with the cross-shard arm once per superstep, G2); ATEs below twice
+   JAX_ANCHOR_ATE_M, JAX_FS2_ANCHOR_ATE_M and JAX_CONFIG5_ATE_M. The
+   group is destroyed after the phase.
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -1257,15 +1272,19 @@ def fs2_shapes():
 def run_once(dev, kind, cfg, slam_map, P, seed, ticks):
     """One run through Runner, as a user calls it: (result, finalized
     particle state). ``kind``: "eager" (-method FASTSLAM1), "fs2"
-    (-method FASTSLAM2), "deferred" (FastSlam1Deferred with K6) or
-    "deferred-per-tick" (FastSlam1Deferred with the per-tick predict).
-    No device is named: everything must come to lie on the card ``dev``
-    by default."""
+    (-method FASTSLAM2), "deferred" (FastSlam1Deferred with K6),
+    "deferred-per-tick" (FastSlam1Deferred with the per-tick predict),
+    or a function (cfg, slam_map, P) -> estimator (the sharded filters
+    of phase 16). No device is named: everything must come to lie on
+    the card ``dev`` by default."""
     import torch
 
     from slam_tpu_torch.models import FastSlam1Deferred
     from slam_tpu_torch.runtime import Runner
-    if kind in ("eager", "fs2"):
+    if callable(kind):
+        runner = Runner(cfg, slam_map, n_particles=P,
+                        estimator=kind(cfg, slam_map, P))
+    elif kind in ("eager", "fs2"):
         method = "FASTSLAM2" if kind == "fs2" else "FASTSLAM1"
         runner = Runner(cfg, slam_map, method, n_particles=P)
     else:
@@ -1287,7 +1306,7 @@ def run_once(dev, kind, cfg, slam_map, P, seed, ticks):
 
 
 def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
-              per_superstep=()) -> dict:
+              per_superstep=(), seeds=SEEDS) -> dict:
     """Phase 4: three seeds at P particles. Checks the traces, the final
     state, the kernels each run launched (reset before it, read after
     it), and the 3-seed RMS ATE against twice the JAX anchor.
@@ -1305,7 +1324,7 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
     total = dict.fromkeys(kernels.WRAPPERS, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for seed in SEEDS:
+    for seed in seeds:
         kernels.reset_launch_counts()
         result, fs = run_once(dev, kind, cfg, slam_map, P, seed, ticks)
         counts = kernels.launch_counts()
@@ -1340,10 +1359,11 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
     rms = float(np.sqrt(np.mean(np.square(ates))))
     ate_bound = ATE_MARGIN * anchor
     check(rms < ate_bound, f"{name}: RMS ATE {rms} >= {ate_bound}")
-    summary = dict(P=P, ate_rmse_3seed=rms, ates=ates, steps_per_s=rates,
+    summary = dict(P=P, seeds=list(seeds), ate_rmse_3seed=rms, ates=ates,
+                   steps_per_s=rates,
                    host_syncs_per_superstep=syncs, launches=total,
                    launches_per_superstep={
-                       k: n / (len(SEEDS) * T) for k, n in total.items()
+                       k: n / (len(seeds) * T) for k, n in total.items()
                        if n},
                    ate_bound=ate_bound,
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2260,6 +2280,149 @@ def check_cli(tmp) -> dict:
     return out
 
 
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_k4_cross_shard(dev, group) -> dict:
+    """Phase 16: K4's cross-shard weight arm (kernels.cross_shard_update:
+    K4 into a zeroed [P] buffer, its all-reduce over the landmark shards,
+    the add to logw) at config #5's shape, K = 96 (70 matched, 20 new),
+    L = 192, P = 2^20, on the NCCL group of one: bit-equal to the
+    in-place K4 and within TOL of the twin's arm (the planes, and the
+    weights' delta); timed beside the in-place K4 (CUDA events and
+    device time)."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops.kernels import kernels as kk
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    rng = np.random.default_rng(16)
+    g = torch.Generator(device=dev).manual_seed(16)
+    n_match, n_new, K, L, P = 70, 20, C5_MAX_OBS, C5_CAPACITY, C5_P
+    state, batch = update_inputs(dev, rng, g, P, L, K, n_map=C5_LANDMARKS,
+                                 live=150, n_match=n_match, n_new=n_new)
+
+    def fresh():
+        return (state.xv, state.logw.clone(), state.lm.clone(),
+                state.lm_P.clone(), *batch, R)
+    arm, in_place = fresh(), fresh()
+    kk.fused_update(*arm, group=group)
+    kk.fused_update(*in_place)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(arm[1:4], in_place[1:4])),
+          "K4 cross-shard arm: not bit-equal to the in-place K4 (max abs "
+          f"err {max_abs_err(arm[1:4], in_place[1:4]):.3g})")
+    del in_place
+    twin = fresh()
+    kk.cross_shard_update(kk.fused_update_plain, *twin, group)
+    torch.cuda.synchronize()
+    # The weights as the arm's delta: -log P plus a sum of 70 terms can
+    # cancel to near 0, where rtol says nothing of the sum's rounding.
+    got = (arm[1] - state.logw, *arm[2:4])
+    want = (twin[1] - state.logw, *twin[2:4])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+    err = max_abs_err(got, want)
+    del arm, twin
+    torch.cuda.empty_cache()
+    b_arm, b_twin = fresh(), fresh()
+    out = measure(lambda: kk.fused_update(*b_arm, group=group),
+                  lambda: kk.cross_shard_update(kk.fused_update_plain,
+                                                *b_twin, group))
+    del b_twin
+    b_in = fresh()
+    out.update(in_place_ms=cuda_ms(lambda: kk.fused_update(*b_in)),
+               in_place_device_ms=device_ms(lambda: kk.fused_update(*b_in)))
+    # K4's bytes (check_k4), with the weight buffer d in logw's place,
+    # and the arm's own: d zeroed, then logw += d reads both and writes
+    # logw. The all-reduce over one rank moves nothing.
+    nbytes = (4 * P * (3 + 2 + 5 * n_match + 5 * (n_match + n_new)) + 18 * K
+              + 16 * P)
+    b_ms, by = bound(nbytes, P * (n_match * OPS_MATCH + n_new * OPS_INIT))
+    out.update(max_abs_err=err, bit_equal_in_place=True, bytes=nbytes,
+               bound_ms=b_ms, bound_by=by, share=b_ms / out["ms"],
+               shape=f"K={K} L={L} P={P}, one landmark shard")
+    print(f"kernel K4 cross-shard arm ({out['shape']}): {out['ms']:.4f} ms "
+          f"(device {out['device_ms']}), in place {out['in_place_ms']:.4f} "
+          f"ms (device {out['in_place_device_ms']}), twin's arm "
+          f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {by}; "
+          f"bit-equal to the in-place K4, max_abs_err {err:.3g} against "
+          "the twin", flush=True)
+    del b_arm, b_in, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sharded(dev) -> dict:
+    """Phase 16: the sharded filters through Runner, in one NCCL process
+    group of one rank (init_distributed with no device named): the card
+    holds one H100, and NCCL runs one rank per device. Their collectives
+    run over groups of one; their kernels on the whole block. K4's
+    cross-shard arm first (check_k4_cross_shard), then (o)
+    ShardedFastSlam1 on (b)'s world and P, (p) ShardedFastSlam2 on (e)'s
+    and (q) LandmarkShardedFastSlam1 on a (1, 1) mesh at config #5's
+    world, width and supersteps, seed 3. Each run: one host sync per
+    superstep, the ATE against (b)'s, (e)'s and (c)'s JAX anchors. The
+    group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from slam_tpu_torch.parallel import (
+        ShardedFastSlam1,
+        ShardedFastSlam2,
+        make_mesh,
+    )
+    from slam_tpu_torch.parallel.distributed import init_distributed
+    from slam_tpu_torch.parallel.landmarks import (
+        LandmarkShardedFastSlam1,
+        make_mesh_2d,
+    )
+    from slam_tpu_torch.runtime.config5 import config5_setup
+
+    t0 = time.perf_counter()
+    rank_dev = init_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl" and rank_dev == dev,
+              f"sharded: backend {dist.get_backend()} on {rank_dev}")
+        mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)
+        arm = check_k4_cross_shard(dev, mesh2.get_group("l"))
+        runs = {}
+        runs["sharded-fs1"] = run_slice(
+            dev, "sharded-fs1", dense200(),
+            lambda c, m, P: ShardedFastSlam1(c, m.n_landmarks, mesh, P),
+            P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
+            off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+            per_superstep=("K4",))
+        runs["sharded-fs2-small"] = run_slice(
+            dev, "sharded-fs2-small", dense200(),
+            lambda c, m, P: ShardedFastSlam2(c, m.n_landmarks, mesh, P),
+            P_SMALL, TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
+            off=("K4", "K6b", "G2", "K5", "K6", "K1"),
+            per_superstep=("K2", "K3"))
+        runs["sharded-lm-config5"] = run_slice(
+            dev, "sharded-lm-config5",
+            config5_setup(C5_LANDMARKS, capacity=C5_CAPACITY,
+                          max_obs=C5_MAX_OBS),
+            lambda c, m, P: LandmarkShardedFastSlam1(c, m.n_landmarks,
+                                                     mesh2, P),
+            C5_P, C5_SUPERSTEPS * T_PREDICT, JAX_CONFIG5_ATE_M,
+            on=("K4", "G2"), off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+            per_superstep=("K4",), seeds=SEEDS[:1])
+        for name, run in runs.items():
+            check(all(x == 1 for x in run["host_syncs_per_superstep"]),
+                  f"{name}: host syncs per superstep "
+                  f"{run['host_syncs_per_superstep']}")
+    finally:
+        dist.destroy_process_group()
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(runs=runs, k4_cross_shard=arm)
+
+
 def main() -> int:
     import torch
 
@@ -2384,12 +2547,15 @@ def main() -> int:
         check_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    sharded = check_sharded(dev)
 
     # Main-path launches of each kernel: the sum of the counts of the
-    # phase-4 runs. K1 lies on no path (the JAX package calls it only
-    # from tests); every slice checks that it stayed at 0. The error is
-    # the largest over a kernel's checks (K4 and G2 at two shapes each);
-    # the times are those of its first check.
+    # runs of phases 4, 12-14 and 16. K1 lies on no path (the JAX package
+    # calls it only from tests); every slice checks that it stayed at 0.
+    # The error is the largest over a kernel's checks (K4 at three shapes
+    # and its cross-shard arm, G2 at two); the times are those of its
+    # first check.
     slices = dict(zip(("eager-small", "eager-large", "config5",
                        "deferred-large", "fs2-small", "fs2-1m"),
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
@@ -2404,11 +2570,14 @@ def main() -> int:
     slices["ckpt-deferred"] = ckpt_deferred
     slices.update(ckpt_small)
     slices.update(streams)
+    # Phase 16: the sharded filters.
+    slices.update(sharded["runs"])
     ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None})
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()
                    if n.split()[0] == k) for k in KERNELS}
+    errs["K4"] = max(errs["K4"], sharded["k4_cross_shard"]["max_abs_err"])
     fields = ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
               "share", "bytes", "ops", "library_ms", "library_device_ms",
               "shape")
@@ -2432,7 +2601,8 @@ def main() -> int:
                 {f: s[f] for f in ("shape", "ms", "device_ms", "bound_ms",
                                    "threads_per_particle", "registers",
                                    "spill_store_bytes")}
-                for n, s in kernel_stats.items() if n.split()[0] == "K4"])
+                for n, s in kernel_stats.items() if n.split()[0] == "K4"],
+                cross_shard=sharded["k4_cross_shard"])
         if name == "K5":
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",

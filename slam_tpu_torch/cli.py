@@ -28,6 +28,7 @@ slam_tpu_torch backend — landmark SLAM in PyTorch / CUDA
 Usage: python -m slam_tpu_torch [options]
     -m <file>        map file (.mat text format)
     -n <name>        simulation name (report directory)
+    -mode <mode>     waypoints (interactive not supported headless)
     -method <name>   EKF1 | FASTSLAM1 | FASTSLAM2
     -particles <N>   particle count
     -ticks <N>       max control ticks

@@ -81,20 +81,10 @@ def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
                ) -> ParticleState:
     """Weight, per-landmark EKF update, new features, resample. Updates
     the landmark planes of ``state`` in place. ``R`` is a host 2x2;
-    ``uniform_at`` the stratified dither (resampling.UniformAt)."""
-    assoc, is_new = rbpf.associate_known(state, ids, zmask)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).to(torch.int32)
-    return update_at_pose(state, z, ids, slot, matched, is_new, R, n_min,
-                          uniform_at, do_resample=do_resample)
-
-
-def update_at_pose(state: ParticleState, z, ids, slot, matched, is_new, R,
-                   n_min: float, uniform_at: rs.UniformAt, *,
-                   do_resample: bool = True) -> ParticleState:
-    """The eager update at the state's poses, after the association:
-    ``fs1_observe``, then the Neff-gated resample. Shared by FastSLAM 1
-    and 2."""
+    ``uniform_at`` the stratified dither (resampling.UniformAt). The
+    sharded filters (``parallel.filter``) run the same ``fs1_observe``
+    with their collective resample in place of ``rbpf.resample``."""
+    slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
     state = fs1_observe(state, z, ids, slot, matched, is_new, R)
     return rbpf.resample(state, n_min, do_resample, uniform_at)
 
@@ -189,9 +179,7 @@ def fs1_update_deferred(dstate: DeferredState, z, ids, zmask, R,
     where JAX uses ``lax.cond``, so K5 launches exactly once per fired
     gate."""
     state, S = dstate.ps, dstate.S
-    assoc, is_new = rbpf.associate_known(state, ids, zmask)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).to(torch.int32)
+    slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
     slot_new, ok = rbpf.new_slots(state, is_new)
     if dstate.pending:
         lm, lm_P = resample_update(state.xv, state.logw, state.lm,

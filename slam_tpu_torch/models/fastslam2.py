@@ -37,7 +37,7 @@ import torch
 from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.models import rbpf
-from slam_tpu_torch.models.fastslam1 import FastSlam1, update_at_pose
+from slam_tpu_torch.models.fastslam1 import FastSlam1, fs1_observe
 from slam_tpu_torch.models.particles import ParticleState
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
@@ -127,20 +127,16 @@ def proposal_noise(n: int, generator: torch.Generator) -> torch.Tensor:
     return torch.randn((3, n), generator=generator, device=generator.device)
 
 
-def fs2_update(state: ParticleState, z, ids, zmask, R, n_min: float, eps,
-               uniform_at: rs.UniformAt, *, do_resample: bool = True
-               ) -> ParticleState:
-    """Proposal refinement and sample, weighting, map update, resample.
-    Updates the landmark planes of ``state`` in place. ``R`` is a host
-    2x2; ``eps`` [3, P] the proposal's normal draw (``proposal_noise``);
-    ``uniform_at`` the stratified dither (resampling.UniformAt)."""
-    assoc, is_new = rbpf.associate_known(state, ids, zmask)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).to(torch.int32)
+def fs2_propose(state: ParticleState, z, zmask, matched, gathered, R, eps
+                ) -> ParticleState:
+    """The proposal: K3's refinement at the state's pose over the
+    matched observations (``gathered``: their landmark planes, each
+    [K, P]), the sample xvs ~ N(xv_r, Pv_r) from ``eps`` [3, P], the
+    importance weight prior / proposal added to logw, and Pv zeroed;
+    with no observation at all (``zmask``) the state as it was, chosen
+    on the device."""
     any_obs = torch.any(zmask)
-
     xv0, Pv0 = state.xv, state.Pv
-    gathered = rbpf.gather_landmarks(state, slot)
     xv_r, Pv_r = _refine_proposal(state, z, matched, gathered, R)
     Pv_r_t = tuple(Pv_r)
 
@@ -159,13 +155,33 @@ def fs2_update(state: ParticleState, z, ids, zmask, R, n_min: float, eps,
     log_prop = pk.log_gauss3_planes(Pv_r_t, xv_r[0] - xvs[0],
                                     xv_r[1] - xvs[1], dq2, _PV_JITTER)
     corr = torch.where(any_obs, log_prior - log_prop, 0.0)
-    state = state._replace(
+    return state._replace(
         logw=state.logw + corr, xv=xvs,
         Pv=torch.where(any_obs, torch.zeros_like(Pv0), Pv0))
 
-    # Likelihood weighting and map update at the sampled pose.
-    return update_at_pose(state, z, ids, slot, matched, is_new, R, n_min,
-                          uniform_at, do_resample=do_resample)
+
+def fs2_observe(state: ParticleState, z, ids, zmask, R, eps
+                ) -> ParticleState:
+    """The FastSLAM 2 update up to the resample: association, the
+    proposal (``fs2_propose``), then the likelihood, the feature updates
+    and the new features at the sampled pose (``fastslam1.fs1_observe``,
+    in place). The sharded filter (``parallel.filter``) follows it with
+    its collective resample."""
+    slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
+    gathered = rbpf.gather_landmarks(state, slot)
+    state = fs2_propose(state, z, zmask, matched, gathered, R, eps)
+    return fs1_observe(state, z, ids, slot, matched, is_new, R)
+
+
+def fs2_update(state: ParticleState, z, ids, zmask, R, n_min: float, eps,
+               uniform_at: rs.UniformAt, *, do_resample: bool = True
+               ) -> ParticleState:
+    """Proposal refinement and sample, weighting, map update, resample.
+    Updates the landmark planes of ``state`` in place. ``R`` is a host
+    2x2; ``eps`` [3, P] the proposal's normal draw (``proposal_noise``);
+    ``uniform_at`` the stratified dither (resampling.UniformAt)."""
+    state = fs2_observe(state, z, ids, zmask, R, eps)
+    return rbpf.resample(state, n_min, do_resample, uniform_at)
 
 
 class FastSlam2(FastSlam1):

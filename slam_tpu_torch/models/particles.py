@@ -29,6 +29,12 @@ from slam_tpu_torch.ops.kernels import bounds_gather_multi, sorted_gather_multi
 
 FIELDS = ("logw", "xv", "Pv", "lm", "lm_P", "n", "da_table")
 
+# Packed-symmetric index maps: Pv's six planes, lm_P's three.
+SYM3 = {(0, 0): 0, (0, 1): 1, (0, 2): 2,
+        (1, 0): 1, (1, 1): 3, (1, 2): 4,
+        (2, 0): 2, (2, 1): 4, (2, 2): 5}
+SYM2 = {(0, 0): 0, (0, 1): 1, (1, 0): 1, (1, 1): 2}
+
 
 class ParticleState(NamedTuple):
     logw: torch.Tensor
@@ -173,3 +179,34 @@ def _gather(state: ParticleState, gather_fn, sel) -> ParticleState:
     return state._replace(logw=small_g[0], xv=small_g[1:4],
                           Pv=small_g[4:10], lm=lm_g.reshape(2, L, N),
                           lm_P=lmP_g.reshape(3, L, N))
+
+
+# ---------------------------------------------------------------------------
+# Packing of symmetric matrices as planes (tests, telemetry)
+# ---------------------------------------------------------------------------
+
+def pack_sym2(M: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 2] symmetric -> planes (m00, m01, m11) stacked on axis 0."""
+    return torch.stack([M[..., 0, 0], M[..., 0, 1], M[..., 1, 1]])
+
+
+def unpack_sym2(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Planes (3, ...) on ``axis`` -> [..., 2, 2] symmetric."""
+    m00, m01, m11 = torch.movedim(p, axis, 0)
+    return torch.stack([torch.stack([m00, m01], -1),
+                        torch.stack([m01, m11], -1)], -2)
+
+
+def pack_sym3(M: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> planes (6, ...) in SYM3 order."""
+    return torch.stack([M[..., 0, 0], M[..., 0, 1], M[..., 0, 2],
+                        M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]])
+
+
+def unpack_sym3(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Planes (6, ...) on ``axis`` in SYM3 order -> [..., 3, 3]
+    symmetric."""
+    a, b, c, d, e, f = torch.movedim(p, axis, 0)
+    return torch.stack([torch.stack([a, b, c], -1),
+                        torch.stack([b, d, e], -1),
+                        torch.stack([c, e, f], -1)], -2)

@@ -102,6 +102,14 @@ def associate_known(state: ParticleState, ids, zmask):
     return assoc, is_new
 
 
+def associate_slots(state: ParticleState, ids, zmask):
+    """Known association as the updates take it: (slot [K] int32, 0
+    where unmatched; matched [K] bool; is_new [K] bool)."""
+    assoc, is_new = associate_known(state, ids, zmask)
+    matched = assoc >= 0
+    return torch.where(matched, assoc, 0).to(torch.int32), matched, is_new
+
+
 def new_slots(state: ParticleState, is_new):
     """(slot_new, ok): new observations take consecutive slots from n
     in observation order; only those below the capacity are kept."""

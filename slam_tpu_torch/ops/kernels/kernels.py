@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed
 
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.ops import planes as pk
@@ -195,13 +196,35 @@ def _update_launch(name, xv, logw, lm, lm_P, z, slot, matched, slot_new,
     build.check(err, name)
 
 
+def cross_shard_update(update, xv, logw, lm, lm_P, z, slot, matched,
+                       slot_new, ok_new, R, group) -> None:
+    """The landmark-sharded arm of K4 and K2 (kernels.py:575-579, the
+    ``psum_axis`` of fs1_update_tpu): this shard's kernel sees only the
+    slots it owns (``matched`` and ``ok_new`` masked to them, ``slot``
+    and ``slot_new`` local), so its weight term is a part of each
+    particle's. ``update`` runs into a zeroed [P] buffer in the place of
+    logw, which holds 0 + d = d exactly since the kernels and the twin
+    add their k-ordered sum d to logw at the end; the buffer is summed
+    over the shards of ``group`` and added to logw. On a group of one it
+    is bit-equal to the in-place update."""
+    d = torch.zeros_like(logw)
+    update(xv, d, lm, lm_P, z, slot, matched, slot_new, ok_new, R)
+    torch.distributed.all_reduce(d, group=group)
+    logw += d
+
+
 def fused_update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
-                 R) -> None:
+                 R, group=None) -> None:
     """K4 (replaces kernels.py:fs1_update_tpu), in place on logw, lm and
     lm_P: the twin on the CPU, the CUDA kernel csrc/fused_update.cu on
     the card (4 or 1 threads per particle as P grows, each loading a
     chunk of its observations' slots before it stores any: see
-    fused_update_map)."""
+    fused_update_map). ``group``: the landmark shards whose weight terms
+    add up (``cross_shard_update``)."""
+    if group is not None:
+        cross_shard_update(fused_update, xv, logw, lm, lm_P, z, slot,
+                           matched, slot_new, ok_new, R, group)
+        return
     if not xv.is_cuda:
         fused_update_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
                            ok_new, R)
@@ -233,14 +256,19 @@ def observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
 
 
 def observe(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
-            R) -> None:
+            R, group=None) -> None:
     """K2 (replaces kernels.py:_observe_call and, around it, the gather,
     scatters and add_new_features of the JAX package's update at a P
     that is no multiple of 128): K4's contract at any P, in place on
     logw, lm and lm_P. The twin on the CPU, the CUDA kernel
     csrc/observe.cu (one thread per (observation, particle) pair) on
     the card; on a slot that two matched observations share it keeps the
-    first one's update, as the twin does."""
+    first one's update, as the twin does. ``group`` as in
+    ``fused_update``."""
+    if group is not None:
+        cross_shard_update(observe, xv, logw, lm, lm_P, z, slot, matched,
+                           slot_new, ok_new, R, group)
+        return
     if not xv.is_cuda:
         observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new,
                       ok_new, R)

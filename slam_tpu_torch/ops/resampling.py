@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -106,3 +107,24 @@ def stratified_indices(logw: torch.Tensor, uniform_at: UniformAt,
     csum = cumulative_weights(normalize_log_weights(logw))
     S = offspring_bounds(csum, n_out, uniform_at)
     return torch.clamp(ancestors_from_bounds(S, n_out), 0, n - 1)
+
+
+def resample_particles(uniform_at: UniformAt, logw: torch.Tensor, n_min,
+                       do_resample: bool = True):
+    """The gated resample decision (counterpart: JAX
+    ``resample_particles``, with the dither ``uniform_at`` in place of
+    the key): (ancestors int32 [N], new logw [N], resampled bool []).
+    Neff >= n_min, or resampling off: the identity and the normalized
+    weights; otherwise the stratified ancestors and uniform weights. The
+    decision stays on the device (no host read); gathering the state by
+    the ancestors is the caller's."""
+    n = logw.shape[-1]
+    logw_n = normalize_log_weights(logw)
+    need = (torch.exp(-torch.logsumexp(2.0 * logw_n, dim=-1)) < n_min
+            ) & bool(do_resample)
+    identity = torch.arange(n, dtype=torch.int32, device=logw.device)
+    idx = torch.where(need, stratified_indices(logw_n, uniform_at),
+                      identity)
+    new_logw = torch.where(need, torch.full_like(logw_n, -math.log(n)),
+                           logw_n)
+    return idx, new_logw, need

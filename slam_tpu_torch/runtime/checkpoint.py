@@ -14,6 +14,9 @@ and ``meta``. The leaves follow the JAX package's order:
   x, P, n, da_table; ``DeferredState``: ps, then S);
 - ``key``: the run's random stream.
 
+``load_jax_checkpoint`` reads a checkpoint that the JAX package wrote,
+and ``save_jax_checkpoint`` writes one that it resumes.
+
 A stream is a ``torch.Generator``, saved as ``get_state()``. Host values
 in the estimator state (``DeferredState.pending``,
 ``ShardedEKFState.hk_n``) go into the manifest as ``est_host``, and the
@@ -206,3 +209,41 @@ def load_jax_checkpoint(path: str, sim_template: SimState, est_template,
                          f"{type(est_template).__name__}")
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return sim_state, est_state, gen, manifest["superstep"]
+
+
+def _threefry_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` of the default threefry
+    implementation, without JAX: the seed's high and low 32 bits as
+    uint32 [2]."""
+    seed &= 2 ** 64 - 1
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def save_jax_checkpoint(path: str, sim_state: SimState, est_state,
+                        superstep: int, seed: int,
+                        meta: dict | None = None) -> str:
+    """Write ``<path>.npz`` and ``<path>.json`` in the layout that the
+    JAX package's ``load_checkpoint`` reads and ``run_checkpointed``
+    resumes: the converse of ``load_jax_checkpoint``. The vehicle,
+    ``tick``, ``superstep`` and the estimator's leaves carry over; a
+    torch generator cannot become a threefry key, so the simulator's key
+    and the run key are ``PRNGKey(seed)`` and ``PRNGKey(seed + 1)``, as a
+    fresh JAX run seeds them, and no generator state is written. Takes a
+    ``ParticleState`` or an ``EKFState``; a ``DeferredState`` raises
+    ``ValueError``, as JAX's carry holds the TPU kernel's window
+    metadata, which the port does not keep. Returns the npz path."""
+    if not isinstance(est_state, (ParticleState, EKFState)):
+        raise ValueError(f"no JAX checkpoint layout for "
+                         f"{type(est_state).__name__}")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    sim = [*(_host(t) for t in sim_state.vehicle), _threefry_key(seed),
+           np.asarray(sim_state.tick, np.int32)]
+    est = [_host(t) for t in est_state]
+    arrays = {"key": _threefry_key(seed + 1)}
+    arrays.update({f"sim_{i}": a for i, a in enumerate(sim)})
+    arrays.update({f"est_{i}": a for i, a in enumerate(est)})
+    np.savez_compressed(path + ".npz", **arrays)
+    with open(path + ".json", "w") as fh:
+        json.dump({"superstep": int(superstep), "n_sim_leaves": len(sim),
+                   "n_est_leaves": len(est), "meta": meta or {}}, fh)
+    return path + ".npz"

@@ -67,7 +67,7 @@ class Runner:
 
     def __init__(self, config: SlamConfig, slam_map: SlamMap,
                  method: str = "EKF1", n_particles: int | None = None,
-                 device=None, estimator=None):
+                 estimator=None, device=None):
         self.config = config
         self.map = slam_map
         self.method = method.upper()

@@ -19,6 +19,13 @@ the CPU, on data/ring40.
   off, heading unknown, so neither run draws a random number) continued
   for 10 supersteps in both packages: n and da_table exact, the poses
   within rtol/atol 1e-4.
+- ``save_jax_checkpoint`` (F8): a port checkpoint of FS1 (P = 16) and
+  of EKF1, cut at superstep 20 of ring40 with the control and sensor
+  noise off, rewritten in the JAX layout, resumes in the JAX package's
+  ``Runner.run_checkpointed(resume=True)``: the truth continues the
+  port's unbroken run within 1e-4; EKF1, which then draws no random
+  number, also its estimate (rtol/atol 1e-4), n and da_table (exact).
+  The keys are JAX's ``PRNGKey(seed)`` and ``PRNGKey(seed + 1)``.
 - ``run_resilient`` with a failure injected after the first chunk ends
   where the clean run ends (the pattern of tests/test_resilience.py).
 """
@@ -42,7 +49,10 @@ from slam_tpu_torch import config as tconfig
 from slam_tpu_torch import maps as tmaps
 from slam_tpu_torch.models import FastSlam1Deferred
 from slam_tpu_torch.runtime import Runner, load_checkpoint, save_checkpoint
-from slam_tpu_torch.runtime.checkpoint import load_jax_checkpoint
+from slam_tpu_torch.runtime.checkpoint import (
+    load_jax_checkpoint,
+    save_jax_checkpoint,
+)
 from slam_tpu_torch.runtime.resilience import run_resilient
 
 DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data")
@@ -373,3 +383,51 @@ def test_run_resilient_recovers(tmp_path, capsys):
         capsys.readouterr().err)
     assert len(got.est_pose) == 20
     assert_results_equal(ref, got)
+
+
+@pytest.mark.parametrize("kind", ["FASTSLAM1", "EKF1"])
+def test_jax_resumes_a_port_checkpoint(tmp_path, kind):
+    n, cut, every, P, seed = 40, 20, 10, 16, 3
+    jcfg, jmap, cfg, slam_map = configs(**NOISE_OFF)
+    period = cfg.steps_per_observe
+    port = Runner(cfg, slam_map, kind, n_particles=P, device="cpu")
+    full = port.run(seed=seed, n_ticks=n * period)
+    part = str(tmp_path / "port")
+    port.run_checkpointed(seed=seed, n_ticks=cut * period, every=every,
+                          ckpt_path=part)
+    sim_state, est_state, _, superstep = load_checkpoint(
+        part, None, port.est.init(P), device="cpu")
+    assert superstep == cut
+    path = str(tmp_path / "jax")
+    save_jax_checkpoint(path, sim_state, est_state, superstep, seed,
+                        meta={"method": kind})
+    with np.load(path + ".npz") as data:
+        np.testing.assert_array_equal(data["key"],
+                                      np.asarray(jax.random.PRNGKey(seed + 1)))
+        np.testing.assert_array_equal(data["sim_5"],
+                                      np.asarray(jax.random.PRNGKey(seed)))
+
+    tail = JRunner(jcfg, jmap, kind, n_particles=P).run_checkpointed(
+        seed=seed, n_ticks=n * period, every=every, ckpt_path=path,
+        resume=True)
+    assert tail.est_pose.shape == (n - cut, 3)
+    assert np.isfinite(tail.est_pose).all()
+    np.testing.assert_allclose(tail.true_pose, full.true_pose[cut:],
+                               rtol=1e-4, atol=1e-4)
+    if kind == "EKF1":
+        np.testing.assert_allclose(tail.est_pose, full.est_pose[cut:],
+                                   rtol=1e-4, atol=1e-4)
+        for f in ("n", "da_table"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(tail.final_state, f)),
+                getattr(full.final_state, f).numpy(), err_msg=f)
+    with open(path + ".json") as fh:
+        assert json.load(fh)["superstep"] == n
+
+
+def test_save_jax_checkpoint_refuses_a_deferred_state(tmp_path):
+    _, _, cfg, slam_map = configs()
+    runner = port_runner("deferred", cfg, slam_map)
+    sim_state, est_state, _, _ = runner._init(3)
+    with pytest.raises(ValueError, match="DeferredState"):
+        save_jax_checkpoint(str(tmp_path / "d"), sim_state, est_state, 0, 3)

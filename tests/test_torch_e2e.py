@@ -128,6 +128,38 @@ def test_runner_defaults_to_ekf1_like_jax(ring40):
     assert isinstance(result.final_state, EKFState)
 
 
+def test_runner_positional_parameters_are_jax_s():
+    """F7: the Runner's positional parameters begin as the JAX
+    Runner's: config, slam_map, method, n_particles, estimator."""
+    import inspect
+
+    import slam_tpu.runtime as jrt
+    from slam_tpu_torch.runtime import Runner
+
+    jax_params = list(inspect.signature(jrt.Runner).parameters)
+    port_params = list(inspect.signature(Runner).parameters)
+    assert port_params[:5] == jax_params[:5] == [
+        "config", "slam_map", "method", "n_particles", "estimator"]
+
+
+def test_cli_help_lists_every_jax_option():
+    """F7: every option the JAX CLI's -h text lists is in the port's,
+    with its words (the backend-specific -profile and -ckpt lines
+    aside), -mode included."""
+    import slam_tpu.cli as jcli
+    import slam_tpu_torch.cli as tcli
+
+    def options(usage):
+        return {line.split()[0]: line.strip() for line in usage.splitlines()
+                if line.startswith("    -")}
+    jax_opts, port_opts = options(jcli.USAGE), options(tcli.USAGE)
+    assert set(jax_opts) <= set(port_opts), set(jax_opts) - set(port_opts)
+    for flag in set(jax_opts) - {"-profile", "-ckpt", "-particles"}:
+        assert port_opts[flag] == jax_opts[flag], flag
+    assert port_opts["-mode"] == (
+        "-mode <mode>     waypoints (interactive not supported headless)")
+
+
 @pytest.mark.parametrize("method", ["EKF1", "EKF", "ekf1", "FOO", "",
                                     "FASTSLAM1", "fastslam2"])
 def test_make_estimator_dispatches_as_jax(ring40, method):

@@ -54,7 +54,9 @@ print(len(names), "modules", *names)
     count, _, *names = proc.stdout.split()
     assert int(count) >= 20, proc.stdout
     for name in ("posegraph", "posegraph.ba", "posegraph.distributed",
-                 "posegraph.synthetic", "runtime.config5"):
+                 "posegraph.synthetic", "runtime.config5", "parallel.mesh",
+                 "parallel.distributed", "parallel.resampling",
+                 "parallel.filter", "parallel.landmarks"):
         assert f"slam_tpu_torch.{name}" in names, name
 
 
@@ -84,3 +86,79 @@ def test_the_scan_sees_a_forbidden_import(tmp_path):
                      "def f():\n    import jax.numpy as jnp\n")
     assert [m for m in _imports(probe) if _forbidden(m)] == [
         "slam_tpu.config", "slam_tpu.config.SlamConfig", "jax.numpy"]
+
+
+# ---------------------------------------------------------------------------
+# The port's public names against the JAX package's
+# ---------------------------------------------------------------------------
+
+# What the port leaves out on purpose: the TPU mechanics (ROADMAP.md,
+# North star), whole modules (None) or names.
+TPU_MECHANICS = {
+    "slam_tpu.ops.pallas": None,           # Pallas kernels: csrc/ instead
+    "slam_tpu.ops.pallas.gather": None,
+    "slam_tpu.ops.pallas.kernels": None,
+    "slam_tpu.models.rbpf": {"TILE_SUB", "tile_shape"},  # [8, P/8] tiles
+}
+# Names of modules whose multi-device arms come in a later slice
+# (ROADMAP.md, Queue 1 item 2e): the landmark mesh axis of the EKF and BA
+# collectives and the EKF state's specs on it.
+NOT_YET = {
+    "slam_tpu.parallel.ekf": {"LM_AXIS", "state_specs"},
+    "slam_tpu.posegraph.distributed": {"LM_AXIS"},
+}
+JAX_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "slam_tpu").rglob("*.py") if p.name != "__main__.py")
+
+
+def _defined(path: Path) -> set:
+    """The public names a module's top level defines (functions, classes
+    and assignments; not what it imports)."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names.update(t.id for t in targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _source(module: str) -> Path:
+    path = ROOT.joinpath(*module.split("."))
+    return path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+
+
+@pytest.mark.parametrize("module", [m for m in JAX_MODULES
+                                    if TPU_MECHANICS.get(m, ()) is not None])
+def test_port_module_has_the_jax_modules_names(module):
+    """Each module of the JAX package has its counterpart in the port
+    (``slam_tpu`` -> ``slam_tpu_torch``), which defines or imports every
+    public name the JAX module defines, less the written lists above;
+    an ``__init__``'s ``__all__`` holds the JAX one's."""
+    import importlib
+
+    port_name = "slam_tpu_torch" + module[len("slam_tpu"):]
+    port = importlib.import_module(port_name)
+    want = (_defined(_source(module)) - TPU_MECHANICS.get(module, set())
+            - NOT_YET.get(module, set()))
+    missing = sorted(n for n in want if not hasattr(port, n))
+    assert not missing, f"{port_name} lacks {missing}"
+    if _source(module).name == "__init__.py":
+        jax_all = importlib.import_module(module).__dict__.get("__all__")
+        if jax_all is not None:
+            gap = sorted(set(jax_all) - set(getattr(port, "__all__", ())))
+            assert not gap, f"{port_name}.__all__ lacks {gap}"
+        for name in getattr(port, "__all__", ()):
+            assert hasattr(port, name), f"{port_name}.__all__: {name}"
+
+
+def test_the_written_lists_name_what_the_jax_package_has():
+    """Every module and name left out still exists in the JAX package."""
+    for module, names in {**TPU_MECHANICS, **NOT_YET}.items():
+        assert module in JAX_MODULES, module
+        assert names is None or names <= _defined(_source(module)), module

@@ -144,3 +144,29 @@ def test_feature_init_planes_matches_jax():
                                    z[:, 0:1], z[:, 1:2], *R3)
     for i, (g, w) in enumerate(zip(got, want)):
         _close(g, w, f"output {i}")
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sym_packing_matches_jax(n):
+    """models.particles' SYM maps and pack / unpack helpers against the
+    JAX package's: the same index maps, the same planes, exact round
+    trips."""
+    import jax.numpy as jnp
+
+    from slam_tpu.models import particles as jpart
+    from slam_tpu_torch.models import particles as tpart
+
+    assert getattr(tpart, f"SYM{n}") == getattr(jpart, f"SYM{n}")
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(5, 4, n, n)).astype(np.float32)
+    M = A @ np.swapaxes(A, -1, -2)
+    pack_j, pack_t = (getattr(m, f"pack_sym{n}") for m in (jpart, tpart))
+    unpack_j, unpack_t = (getattr(m, f"unpack_sym{n}") for m in (jpart, tpart))
+    planes = pack_t(torch.tensor(M))
+    np.testing.assert_array_equal(planes.numpy(),
+                                  np.asarray(pack_j(jnp.asarray(M))))
+    np.testing.assert_array_equal(unpack_t(planes).numpy(), M)
+    moved = np.moveaxis(planes.numpy(), 0, 1)
+    np.testing.assert_array_equal(
+        unpack_t(torch.tensor(moved), axis=1).numpy(),
+        np.asarray(unpack_j(jnp.asarray(moved), axis=1)))

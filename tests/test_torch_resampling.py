@@ -119,3 +119,36 @@ def test_uniform_from_generator_is_a_function_of_position():
     a = u(pos)
     assert a[0] == a[2] and torch.all((a >= 0) & (a < 1))
     np.testing.assert_array_equal(u(pos).numpy(), a.numpy())
+
+
+# The cases of tests/test_ops.py's resample_particles tests (uniform
+# weights: the gate holds; one dominant particle: it fires; resampling
+# off), and random weights with a fired gate.
+RESAMPLE_CASES = {
+    "holds": (np.zeros(8, np.float32), 6.0, True),
+    "fires": (np.array([0.0] + [-40.0] * 7, np.float32), 6.0, True),
+    "disabled": (np.array([0.0] + [-40.0] * 7, np.float32), 6.0, False),
+    "random": (_logw(300, "random", seed=5), 300.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(RESAMPLE_CASES))
+def test_resample_particles_matches_jax(case, monkeypatch):
+    """The port's resample_particles on JAX's dither (and prefix sum)
+    against JAX's: ancestors and the decision exactly, weights at rtol
+    1e-6."""
+    logw, n_min, on = RESAMPLE_CASES[case]
+    key = jax.random.PRNGKey(0)
+    idx, new_logw, did = jrs.resample_particles(key, jnp.asarray(logw),
+                                                n_min=n_min, do_resample=on)
+    logw_n = np.asarray(jrs.normalize_log_weights(jnp.asarray(logw)))
+    csum, U = _jax_draws(logw_n, key)
+    monkeypatch.setattr(trs, "cumulative_weights",
+                        lambda _: torch.tensor(csum))
+    t_idx, t_logw, t_did = trs.resample_particles(
+        lambda pos: U[pos], torch.tensor(logw), n_min, do_resample=on)
+    assert bool(t_did) == bool(did) == (case in ("fires", "random"))
+    assert t_idx.dtype == torch.int32
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(idx))
+    np.testing.assert_allclose(t_logw.numpy(), np.asarray(new_logw),
+                               rtol=1e-6)
