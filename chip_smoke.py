@@ -171,8 +171,34 @@ Phases, in order; any failure raises and exits non-zero:
    LandmarkShardedFastSlam1 on a (1, 1) mesh at config #5's world and
    width (capacity 192, 96 observations, P=2^20, 32 supersteps, seed 3;
    K4 with the cross-shard arm once per superstep, G2); ATEs below twice
-   JAX_ANCHOR_ATE_M, JAX_FS2_ANCHOR_ATE_M and JAX_CONFIG5_ATE_M. The
-   group is destroyed after the phase.
+   JAX_ANCHOR_ATE_M, JAX_FS2_ANCHOR_ATE_M and JAX_CONFIG5_ATE_M.
+17. The mesh paths, in the same group (destroyed after this phase):
+   K2's cross-shard weight arm at K=96 (70 matched, 20 new), L=192,
+   P=1,000,000 against the in-place K2 (the line says whether bit-equal
+   or within TOL) and within TOL of its twin's arm, timed beside it;
+   G1 over 970 rows at P=1,000,000 bit-equal to its twin and to
+   index_select, timed beside both, with its bound; then, no run naming
+   a device:
+   (r) ekf-10k-mesh: ShardedEkfSlam on make_mesh(1, axis="l") on (i)'s
+       world, 640 ticks, seed 3, and the same run with no mesh: each
+       with 0 host syncs under set_sync_debug_mode("error") and no
+       kernel launched; est_pose and the final state bit-equal; ATE
+       below twice JAX_EKF_10K_ATE_M;
+   (s) ba-10k-mesh: solve_ba_sharded on make_ba_problem(256, 10_000),
+       30 iterations, on a landmark mesh of one rank and on none: poses,
+       landmarks, costs, trials and host reads equal; ms per LM trial
+       beside (j)'s;
+   (t) config5-mesh: run_config5() with JAX's defaults (P=1,000,000,
+       (1, 1), capacity 192, 32 supersteps, seed 3), which takes
+       LandmarkShardedFastSlam1 (K2 with its arm once per superstep, G1)
+       and solve_ba_sharded on the one-rank landmark mesh; one host
+       sync per superstep; tests/test_config5.py's checks; the filter's
+       and the refined ATE below twice their JAX anchors; a replay gives
+       the same errors bit for bit;
+   (u) ckpt-sharded: ShardedFastSlam1 on dense200 at P=16,384 through
+       run_checkpointed in chunks of 50, unbroken to superstep 200, then
+       cut at 150 and resumed: one checkpoint, holding the rank's Philox
+       stream, and the resumed run bit-equal (K4, G2).
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -302,6 +328,11 @@ K_OBS, CAPACITY = 15, 200
 # 32 supersteps; and its cap256 and full-10k points (bench.py:499-507).
 C5_LANDMARKS, C5_CAPACITY, C5_MAX_OBS = 10_000, 192, 96
 C5_P, C5_SUPERSTEPS = 2 ** 20, 32
+# run_config5()'s own default width, the JAX package's: 1,000,000
+# particles, no multiple of 128 or 512, so on a mesh it takes K2 and G1.
+C5_JAX_P = 1_000_000
+# (u): the sharded checkpointed run's particle count.
+P_CKPT_SHARDED = 16_384
 C5_POINTS = (("config5-cap256", 2 ** 20, 256, 16),
              ("config5-full-10k", 32_768, 10_000, 16))
 # The ba_10k problem (keyframes, landmarks) and its iterations.
@@ -2360,24 +2391,20 @@ def check_k4_cross_shard(dev, group) -> dict:
 
 
 def check_sharded(dev) -> dict:
-    """Phase 16: the sharded filters through Runner, in one NCCL process
-    group of one rank (init_distributed with no device named): the card
-    holds one H100, and NCCL runs one rank per device. Their collectives
-    run over groups of one; their kernels on the whole block. K4's
-    cross-shard arm first (check_k4_cross_shard), then (o)
-    ShardedFastSlam1 on (b)'s world and P, (p) ShardedFastSlam2 on (e)'s
-    and (q) LandmarkShardedFastSlam1 on a (1, 1) mesh at config #5's
-    world, width and supersteps, seed 3. Each run: one host sync per
-    superstep, the ATE against (b)'s, (e)'s and (c)'s JAX anchors. The
-    group is destroyed at the end."""
-    import torch.distributed as dist
-
+    """Phase 16: the sharded filters through Runner, in the NCCL process
+    group of one rank that main starts (nccl_group): the card holds one
+    H100, and NCCL runs one rank per device. Their collectives run over
+    groups of one; their kernels on the whole block. K4's cross-shard
+    arm first (check_k4_cross_shard), then (o) ShardedFastSlam1 on (b)'s
+    world and P, (p) ShardedFastSlam2 on (e)'s and (q)
+    LandmarkShardedFastSlam1 on a (1, 1) mesh at config #5's world,
+    width and supersteps, seed 3. Each run: one host sync per superstep,
+    the ATE against (b)'s, (e)'s and (c)'s JAX anchors."""
     from slam_tpu_torch.parallel import (
         ShardedFastSlam1,
         ShardedFastSlam2,
         make_mesh,
     )
-    from slam_tpu_torch.parallel.distributed import init_distributed
     from slam_tpu_torch.parallel.landmarks import (
         LandmarkShardedFastSlam1,
         make_mesh_2d,
@@ -2385,42 +2412,454 @@ def check_sharded(dev) -> dict:
     from slam_tpu_torch.runtime.config5 import config5_setup
 
     t0 = time.perf_counter()
+    mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)
+    arm = check_k4_cross_shard(dev, mesh2.get_group("l"))
+    runs = {}
+    runs["sharded-fs1"] = run_slice(
+        dev, "sharded-fs1", dense200(),
+        lambda c, m, P: ShardedFastSlam1(c, m.n_landmarks, mesh, P),
+        P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
+        off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+        per_superstep=("K4",))
+    runs["sharded-fs2-small"] = run_slice(
+        dev, "sharded-fs2-small", dense200(),
+        lambda c, m, P: ShardedFastSlam2(c, m.n_landmarks, mesh, P),
+        P_SMALL, TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
+        off=("K4", "K6b", "G2", "K5", "K6", "K1"),
+        per_superstep=("K2", "K3"))
+    runs["sharded-lm-config5"] = run_slice(
+        dev, "sharded-lm-config5",
+        config5_setup(C5_LANDMARKS, capacity=C5_CAPACITY,
+                      max_obs=C5_MAX_OBS),
+        lambda c, m, P: LandmarkShardedFastSlam1(c, m.n_landmarks,
+                                                 mesh2, P),
+        C5_P, C5_SUPERSTEPS * T_PREDICT, JAX_CONFIG5_ATE_M,
+        on=("K4", "G2"), off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+        per_superstep=("K4",), seeds=SEEDS[:1])
+    for name, run in runs.items():
+        check(all(x == 1 for x in run["host_syncs_per_superstep"]),
+              f"{name}: host syncs per superstep "
+              f"{run['host_syncs_per_superstep']}")
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(runs=runs, k4_cross_shard=arm)
+
+
+@contextlib.contextmanager
+def nccl_group(dev):
+    """An NCCL process group of one rank on the card, for phases 16 and
+    17 (init_distributed with no device named, on a free localhost
+    port); destroyed on the way out."""
+    import torch.distributed as dist
+
+    from slam_tpu_torch.parallel.distributed import init_distributed
+
     rank_dev = init_distributed(f"tcp://localhost:{free_port()}", 1, 0)
     try:
         check(dist.get_backend() == "nccl" and rank_dev == dev,
-              f"sharded: backend {dist.get_backend()} on {rank_dev}")
-        mesh, mesh2 = make_mesh(), make_mesh_2d(1, 1)
-        arm = check_k4_cross_shard(dev, mesh2.get_group("l"))
-        runs = {}
-        runs["sharded-fs1"] = run_slice(
-            dev, "sharded-fs1", dense200(),
-            lambda c, m, P: ShardedFastSlam1(c, m.n_landmarks, mesh, P),
-            P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
-            off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
-            per_superstep=("K4",))
-        runs["sharded-fs2-small"] = run_slice(
-            dev, "sharded-fs2-small", dense200(),
-            lambda c, m, P: ShardedFastSlam2(c, m.n_landmarks, mesh, P),
-            P_SMALL, TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
-            off=("K4", "K6b", "G2", "K5", "K6", "K1"),
-            per_superstep=("K2", "K3"))
-        runs["sharded-lm-config5"] = run_slice(
-            dev, "sharded-lm-config5",
-            config5_setup(C5_LANDMARKS, capacity=C5_CAPACITY,
-                          max_obs=C5_MAX_OBS),
-            lambda c, m, P: LandmarkShardedFastSlam1(c, m.n_landmarks,
-                                                     mesh2, P),
-            C5_P, C5_SUPERSTEPS * T_PREDICT, JAX_CONFIG5_ATE_M,
-            on=("K4", "G2"), off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
-            per_superstep=("K4",), seeds=SEEDS[:1])
-        for name, run in runs.items():
-            check(all(x == 1 for x in run["host_syncs_per_superstep"]),
-                  f"{name}: host syncs per superstep "
-                  f"{run['host_syncs_per_superstep']}")
+              f"process group: backend {dist.get_backend()} on {rank_dev}")
+        yield
     finally:
         dist.destroy_process_group()
-    print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(runs=runs, k4_cross_shard=arm)
+
+
+def check_k2_cross_shard(dev, group) -> dict:
+    """Phase 17: K2's cross-shard weight arm (kernels.cross_shard_update
+    around K2) at the shape of config #5 at JAX's default width, K = 96
+    (70 matched, 20 new), L = 192, P = 1,000,000 (no multiple of 128,
+    so the landmark-sharded filter takes K2), on the NCCL group of one:
+    against the in-place K2 (bit-equal, or within TOL: which is
+    printed) and within TOL of the twin's arm (the planes, and the
+    weights' delta); timed beside the in-place K2."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops.kernels import kernels as kk
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    rng = np.random.default_rng(17)
+    g = torch.Generator(device=dev).manual_seed(17)
+    n_match, n_new, K, L, P = 70, 20, C5_MAX_OBS, C5_CAPACITY, C5_JAX_P
+    state, batch = update_inputs(dev, rng, g, P, L, K, n_map=C5_LANDMARKS,
+                                 live=150, n_match=n_match, n_new=n_new)
+
+    def fresh():
+        return (state.xv, state.logw.clone(), state.lm.clone(),
+                state.lm_P.clone(), *batch, R)
+
+    def deltas(out):
+        return (out[1] - state.logw, *out[2:4])
+    arm, in_place = fresh(), fresh()
+    kk.observe(*arm, group=group)
+    kk.observe(*in_place)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(arm[1:4],
+                                                      in_place[1:4]))
+    for a, b in zip(deltas(arm), deltas(in_place)):
+        torch.testing.assert_close(a, b, **TOL)
+    err_in_place = max_abs_err(deltas(arm), deltas(in_place))
+    del in_place
+    twin = fresh()
+    kk.cross_shard_update(kk.observe_plain, *twin, group)
+    torch.cuda.synchronize()
+    got, want = deltas(arm), deltas(twin)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+    err = max_abs_err(got, want)
+    del arm, twin, got, want
+    torch.cuda.empty_cache()
+    b_arm, b_twin = fresh(), fresh()
+    out = measure(lambda: kk.observe(*b_arm, group=group),
+                  lambda: kk.cross_shard_update(kk.observe_plain, *b_twin,
+                                                group))
+    del b_twin
+    b_in = fresh()
+    out.update(in_place_ms=cuda_ms(lambda: kk.observe(*b_in)),
+               in_place_device_ms=device_ms(lambda: kk.observe(*b_in)))
+    # K2's bytes (check_k2) and the arm's own: d zeroed, then logw += d
+    # reads both and writes logw.
+    nbytes = (4 * P * (3 + 2 + 10 * n_match + 5 * n_new) + 18 * K
+              + 16 * P)
+    ops = P * (n_match * OPS_MATCH + n_new * OPS_INIT)
+    b_ms, by = bound(nbytes, ops)
+    out.update(max_abs_err=err, in_place_max_abs_err=err_in_place,
+               bit_equal_in_place=bit_equal, bytes=nbytes, ops=ops,
+               bound_ms=b_ms, bound_by=by, share=b_ms / out["ms"],
+               shape=f"K={K} L={L} P={P}, one landmark shard")
+    print(f"kernel K2 cross-shard arm ({out['shape']}): {out['ms']:.4f} ms "
+          f"(device {out['device_ms']}), in place {out['in_place_ms']:.4f} "
+          f"ms (device {out['in_place_device_ms']}), twin's arm "
+          f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {by}; "
+          f"{'bit-equal to' if bit_equal else 'within TOL of'} the in-place "
+          f"K2 (max abs err {err_in_place:.3g}), max_abs_err {err:.3g} "
+          "against the twin's arm", flush=True)
+    del b_arm, b_in, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_g1_at_width(dev) -> dict:
+    """Phase 17: G1 over the resample gather's 10 + 5L rows (L = 192:
+    970) at P = 1,000,000, the one-rank ring_resample's arm at a P that
+    is no multiple of 512: bit-equal to its twin and to index_select by
+    the same ancestors, timed beside them, with its bound."""
+    import torch
+
+    from slam_tpu_torch.ops import resampling as rs
+    from slam_tpu_torch.ops.kernels import gather as kg
+
+    g = torch.Generator(device=dev).manual_seed(171)
+    f32 = dict(dtype=torch.float32, device=dev)
+    P, L = C5_JAX_P, C5_CAPACITY
+    arrays = [torch.randn((c, P), generator=g, **f32) * 37
+              for c in (10, 2 * L, 3 * L)]
+    stacked = torch.cat(arrays)
+    rows = stacked.shape[0]
+    logw = torch.randn(P, generator=g, **f32) * 2.0
+    sel = rs.stratified_indices(logw, rs.uniform_from_generator(P, g, dev))
+    distinct = int(torch.unique(sel).numel())
+    got = kg.sorted_gather_multi(arrays, sel)
+    want = kg.sorted_gather_multi_plain(arrays, sel)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "G1 at P = 1e6: not bit-equal to its twin")
+    check(torch.equal(torch.index_select(stacked, 1, sel), torch.cat(got)),
+          "G1 at P = 1e6: index_select gathers other values")
+    del got, want
+    torch.cuda.empty_cache()
+    out = measure(lambda: kg.sorted_gather_multi(arrays, sel),
+                  lambda: kg.sorted_gather_multi_plain(arrays, sel),
+                  lambda: torch.index_select(stacked, 1, sel))
+    nbytes = 4 * (rows * distinct + P + rows * P)
+    b_ms, by = bound(nbytes, 0)
+    out.update(max_abs_err=0.0, bytes=nbytes, ops=0, bound_ms=b_ms,
+               bound_by=by, share=b_ms / out["ms"],
+               shape=f"rows={rows} P={P} distinct={distinct}")
+    print(f"kernel G1 ({out['shape']}): {out['ms']:.4f} ms (device "
+          f"{out['device_ms']}), plain {out['plain_ms']:.4f} ms, "
+          f"index_select {out['library_ms']:.4f} ms (device "
+          f"{out['library_device_ms']}), bound {b_ms:.4f} ms by {by} "
+          f"({nbytes:.4g} B), share {out['share']:.3f}; bit-equal to the "
+          "twin and to index_select", flush=True)
+    del arrays, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ekf_mesh(dev) -> dict:
+    """Phase 17 (r) ekf-10k-mesh: ShardedEkfSlam on make_mesh(1,
+    axis="l") on (i)'s world, 640 ticks, seed 3, through Runner with no
+    device named, and the same run with no mesh: 0 host syncs under
+    set_sync_debug_mode("error"), no kernel launched; est_pose and the
+    final state bit-equal; the ATE below twice JAX_EKF_10K_ATE_M."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.parallel import make_mesh
+    from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
+    from slam_tpu_torch.runtime import Runner, compute_metrics
+
+    t0 = time.perf_counter()
+    cfg, slam_map = ekf10k()
+    T = EKF10K_TICKS // cfg.steps_per_observe
+    runs, walls = {}, {}
+    for name, mesh in (("no mesh", None), ("mesh", make_mesh(1, axis="l"))):
+        runner = Runner(cfg, slam_map, "EKF1", estimator=ShardedEkfSlam(
+            cfg, slam_map.n_landmarks, mesh))
+        kernels.reset_launch_counts()
+        with syncs_raise(runner, T) as done:
+            result = runner.run(seed=3, n_ticks=EKF10K_TICKS)
+        counts = kernels.launch_counts()
+        check(done[0] == T and result.host_syncs == 0,
+              f"ekf-10k-mesh ({name}): {done[0]} of {T} updates, "
+              f"{result.host_syncs} host syncs")
+        check(not any(counts.values()),
+              f"ekf-10k-mesh ({name}): kernels launched {counts}")
+        away = on_card(dev, runner, state_tensors(result.final_state))
+        check(not away, f"ekf-10k-mesh ({name}): not on {dev}: {away}")
+        runs[name] = result
+        walls[name] = result.wall_seconds
+    a, b = runs["no mesh"], runs["mesh"]
+    check(np.array_equal(a.est_pose, b.est_pose),
+          "ekf-10k-mesh: est_pose differs from the run with no mesh")
+    check(all(torch.equal(x, y) for x, y in zip(
+        state_tensors(a.final_state), state_tensors(b.final_state)))
+          and a.final_state.hk_n == b.final_state.hk_n,
+          "ekf-10k-mesh: the final state differs from the run with no mesh")
+    ate = compute_metrics(b).ate_rmse
+    bound_m = ATE_MARGIN * JAX_EKF_10K_ATE_M
+    check(ate < bound_m, f"ekf-10k-mesh: ATE {ate} >= {bound_m}")
+    out = dict(ate_rmse=ate, ate_bound=bound_m, n=int(b.final_state.n),
+               host_syncs_per_superstep=0, wall_s=walls,
+               steps_per_s={k: EKF10K_TICKS / w for k, w in walls.items()},
+               bit_equal_to_no_mesh=True,
+               launches=dict.fromkeys(kernels.WRAPPERS, 0),
+               launches_per_superstep={},
+               seconds=time.perf_counter() - t0)
+    print(f"slice ekf-10k-mesh: {json.dumps(out)}", flush=True)
+    del runs, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ba_mesh(dev, ba10k: dict) -> dict:
+    """Phase 17 (s) ba-10k-mesh: solve_ba_sharded on make_ba_problem(256,
+    10_000), 30 iterations, on a landmark mesh of one rank and on no
+    mesh: the same poses and landmarks bit for bit, the same costs,
+    trials and host reads; no kernel launched; the error below 0.2 of
+    the dead-reckoned one (bench.py's first check). ms per LM trial by
+    CUDA events, beside (j)'s solve_ba_device."""
+    import numpy as np
+    import torch
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.parallel.mesh import mesh_over
+    from slam_tpu_torch.posegraph import solve_ba_sharded
+    from slam_tpu_torch.posegraph.synthetic import make_ba_problem
+
+    t0 = time.perf_counter()
+    prob, poses, poses0, _ = make_ba_problem(*BA10K_SHAPE)
+    solves = {}
+    kernels.reset_launch_counts()
+    for name, mesh in (("no mesh", None),
+                       ("mesh", mesh_over([0], (1,), ("l",)))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, lm, info = solve_ba_sharded(prob, mesh, iters=BA10K_ITERS,
+                                       return_info=True)
+        end.record()
+        torch.cuda.synchronize()
+        solves[name] = (p, lm, info, start.elapsed_time(end)
+                        / info["n_steps"])
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"ba-10k-mesh: kernels launched {counts}")
+    (p0, l0, i0, ms0), (p1, l1, i1, ms1) = solves["no mesh"], solves["mesh"]
+    check(torch.equal(p0, p1) and torch.equal(l0, l1),
+          "ba-10k-mesh: not bit-equal to the solve with no mesh")
+    check(i0 == i1, f"ba-10k-mesh: {i1} against {i0}")
+    check(l1.shape == (BA10K_SHAPE[1], 2), f"ba-10k-mesh: landmarks "
+          f"{tuple(l1.shape)}")
+    err_init = float(np.linalg.norm(poses0[:, :2] - poses[:, :2],
+                                    axis=1).mean())
+    err = float(np.linalg.norm(p1[:, :2].cpu().numpy() - poses[:, :2],
+                               axis=1).mean())
+    check(err < 0.2 * err_init, f"ba-10k-mesh: error {err} >= 0.2 x "
+          f"{err_init}")
+    out = dict(err=err, err_init=err_init, n_steps=i1["n_steps"],
+               n_iters=i1["n_iters"], host_reads=i1["host_reads"],
+               events_ms_per_trial={"no mesh": ms0, "mesh": ms1},
+               j_events_ms_per_trial=ba10k["events_ms_per_trial"],
+               bit_equal_to_no_mesh=True,
+               seconds=time.perf_counter() - t0)
+    print(f"ba-10k-mesh: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_config5_mesh(dev) -> dict:
+    """Phase 17 (t) config5-mesh: run_config5() with JAX's defaults in the
+    NCCL group: P = 1,000,000 on a (1, 1) mesh, capacity 192, 32
+    supersteps, seed 3; JAX's rule takes LandmarkShardedFastSlam1 there
+    (1e6 is no multiple of 512), so K2 with its cross-shard arm once per
+    superstep (1e6 is no multiple of 128) and G1 on each fired resample,
+    and none of K4, K5, K6, G2; one host sync (the gate) per superstep;
+    tests/test_config5.py's checks; the filter's and the refined ATE
+    below twice JAX_CONFIG5_ATE_M and JAX_CONFIG5_REFINED_ATE_M; a
+    second run gives the same errors, bit for bit."""
+    import torch
+
+    from slam_tpu_torch.models import rbpf
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.runtime import config5
+
+    t0 = time.perf_counter()
+    built = []
+    cls = config5.LandmarkShardedFastSlam1
+
+    def spy(*args, **kw):
+        est = cls(*args, **kw)
+        built.append((type(est).__name__, est.device, est.mesh.shape))
+        return est
+    config5.LandmarkShardedFastSlam1 = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        syncs = rbpf.host_bool.count
+        r = config5.run_config5()
+        syncs = rbpf.host_bool.count - syncs
+        counts = kernels.launch_counts()
+    finally:
+        config5.LandmarkShardedFastSlam1 = cls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = C5_SUPERSTEPS
+    check(len(built) == 1 and built[0][1] == dev,
+          f"config5-mesh: the filter built {built}")
+    check(r.n_keyframes == n and r.n_landmarks_map == C5_LANDMARKS
+          and r.n_landmarks_observed > 50, f"config5-mesh: {r}")
+    check(all(math.isfinite(v) for v in (r.ate_filter, r.ate_refined,
+                                         r.ba_seconds)),
+          f"config5-mesh: non-finite result {r}")
+    check(r.ate_refined < max(2.0 * r.ate_filter, 0.15),
+          f"config5-mesh: refined ATE {r.ate_refined} against the "
+          f"filter's {r.ate_filter}")
+    check(r.ba_iters >= 1, "config5-mesh: no BA iteration")
+    check(counts["K2"] == n and counts["G1"] > 0,
+          f"config5-mesh: launches {counts} in {n} supersteps")
+    for k in ("K4", "K5", "K6", "G2", "K3", "K6b", "K1"):
+        check(counts[k] == 0, f"config5-mesh: {k} should not run {counts}")
+    check(syncs == n, f"config5-mesh: {syncs} gate syncs in {n} supersteps")
+    for key, anchor in (("ate_filter", JAX_CONFIG5_ATE_M),
+                        ("ate_refined", JAX_CONFIG5_REFINED_ATE_M)):
+        check(getattr(r, key) < ATE_MARGIN * anchor,
+              f"config5-mesh: {key} {getattr(r, key)} >= "
+              f"{ATE_MARGIN * anchor}")
+    # 5 float32 planes per (particle, slot), on the card.
+    check(peak * 2 ** 30 > 20 * C5_JAX_P * C5_CAPACITY,
+          f"config5-mesh: peak device memory {peak} GiB")
+    # A replay: the one-rank resample's prefix sum must round the same
+    # way on every run (ops.resampling._cumsum_blocked).
+    r2 = config5.run_config5()
+    replay = ("ate_filter", "ate_refined", "n_landmarks_observed",
+              "ba_iters")
+    check(all(getattr(r, k) == getattr(r2, k) for k in replay),
+          f"config5-mesh: a replay differs: {r2} against {r}")
+    out = edge_slice(counts, n, result=r._asdict(), P=C5_JAX_P,
+                     filter=built[0][0], host_syncs_per_superstep=1.0,
+                     peak_gib=peak, seconds=time.perf_counter() - t0)
+    print(f"slice config5-mesh: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_ckpt_sharded(dev, tmp) -> dict:
+    """Phase 17 (u) ckpt-sharded: ShardedFastSlam1 on dense200 at
+    P = 16,384 (make_mesh over the one rank, no device named), seed 3,
+    through run_checkpointed in chunks of 50: unbroken to superstep 200,
+    then cut at 150 (after the first sighting at 137) and resumed. One
+    checkpoint file pair per run, holding the rank's Philox stream;
+    the resumed run bit-equal to the unbroken one (traces and state)."""
+    import os
+
+    import numpy as np
+
+    from slam_tpu_torch.ops import kernels
+    from slam_tpu_torch.parallel import ShardedFastSlam1, make_mesh
+    from slam_tpu_torch.runtime import Runner
+
+    t0 = time.perf_counter()
+    cfg, slam_map = dense200()
+    period, N = cfg.steps_per_observe, EDGE_SUPERSTEPS
+    mesh = make_mesh()
+
+    def make():
+        est = ShardedFastSlam1(cfg, slam_map.n_landmarks, mesh,
+                               P_CKPT_SHARDED)
+        return Runner(cfg, slam_map, "FASTSLAM1", n_particles=P_CKPT_SHARDED,
+                      estimator=est)
+    kw = dict(seed=3, every=SMALL_EVERY)
+    kernels.reset_launch_counts()
+    r = make()
+    full = r.run_checkpointed(n_ticks=N * period, ckpt_path=os.path.join(
+        tmp, "sharded-full", "run"), **kw)
+    check(not on_card(dev, r, state_tensors(full.final_state)),
+          f"ckpt-sharded: with no device named the run is not on {dev}")
+    check(full.host_syncs == N, f"ckpt-sharded: {full.host_syncs} host "
+          f"syncs in {N} supersteps")
+    ck = os.path.join(tmp, "sharded-cut", "run")
+    make().run_checkpointed(n_ticks=SMALL_CUT * period, ckpt_path=ck, **kw)
+    files = sorted(os.listdir(os.path.dirname(ck)))
+    check(files == ["run.json", "run.npz"], f"ckpt-sharded: files {files}")
+    with open(ck + ".json") as fh:
+        manifest = json.load(fh)
+    with np.load(ck + ".npz") as data:
+        streams = data["streams"]
+    check(manifest["mesh_shape"] == [1] and manifest["superstep"]
+          == SMALL_CUT and streams.shape[0] == 1,
+          f"ckpt-sharded: manifest {manifest}, streams {streams.shape}")
+    resumed = make().run_checkpointed(n_ticks=N * period, ckpt_path=ck,
+                                      resume=True, **kw)
+    counts = kernels.launch_counts()
+    check(len(resumed.est_pose) == N - SMALL_CUT,
+          f"ckpt-sharded: {len(resumed.est_pose)} resumed supersteps")
+    same_run("ckpt-sharded", full, resumed)
+    for k in ("K4", "G2"):
+        check(counts[k] > 0, f"ckpt-sharded: {k} was never launched {counts}")
+    for k in ("K2", "G1", "K5", "K6", "K3", "K6b", "K1"):
+        check(counts[k] == 0, f"ckpt-sharded: {k} should not run {counts}")
+    out = edge_slice(counts, 2 * N, P=P_CKPT_SHARDED, supersteps=N,
+                     cut=SMALL_CUT, stream_state_bytes=int(streams.shape[1]),
+                     host_syncs_per_superstep=1.0,
+                     seconds=time.perf_counter() - t0)
+    print(f"slice ckpt-sharded: bit-equal across a resume at {SMALL_CUT}; "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def check_mesh_paths(dev, ba10k: dict) -> dict:
+    """Phase 17, in the NCCL group of phase 16: K2's cross-shard arm and
+    G1 at JAX's default config #5 width (P = 1,000,000), then (r)
+    ekf-10k-mesh, (s) ba-10k-mesh, (t) config5-mesh and (u)
+    ckpt-sharded."""
+    import torch
+
+    from slam_tpu_torch.parallel.landmarks import make_mesh_2d
+
+    t0 = time.perf_counter()
+    k2_arm = check_k2_cross_shard(dev, make_mesh_2d(1, 1).get_group("l"))
+    g1 = check_g1_at_width(dev)
+    ekf = check_ekf_mesh(dev)
+    ba = check_ba_mesh(dev, ba10k)
+    torch.cuda.empty_cache()
+    c5 = check_config5_mesh(dev)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ckpt = check_ckpt_sharded(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(k2_cross_shard=k2_arm, g1_at_width=g1,
+                runs={"ekf-10k-mesh": ekf, "config5-mesh": c5,
+                      "ckpt-sharded": ckpt}, ba=ba)
 
 
 def main() -> int:
@@ -2535,7 +2974,7 @@ def main() -> int:
     check_tf32_held_off(dev)
     time_pmm_pass(dev)
     torch.cuda.empty_cache()
-    check_ba_10k(dev, card)
+    ba10k = check_ba_10k(dev, card)
 
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2548,14 +2987,17 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    sharded = check_sharded(dev)
+    with nccl_group(dev):
+        sharded = check_sharded(dev)
+        torch.cuda.empty_cache()
+        meshed = check_mesh_paths(dev, ba10k)
 
     # Main-path launches of each kernel: the sum of the counts of the
-    # runs of phases 4, 12-14 and 16. K1 lies on no path (the JAX package
-    # calls it only from tests); every slice checks that it stayed at 0.
-    # The error is the largest over a kernel's checks (K4 at three shapes
-    # and its cross-shard arm, G2 at two); the times are those of its
-    # first check.
+    # runs of phases 4, 12-14, 16 and 17. K1 lies on no path (the JAX
+    # package calls it only from tests); every slice checks that it
+    # stayed at 0. The error is the largest over a kernel's checks (K4 at
+    # three shapes and its cross-shard arm, K2 and its arm, G2 at two);
+    # the times are those of its first check.
     slices = dict(zip(("eager-small", "eager-large", "config5",
                        "deferred-large", "fs2-small", "fs2-1m"),
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
@@ -2570,14 +3012,17 @@ def main() -> int:
     slices["ckpt-deferred"] = ckpt_deferred
     slices.update(ckpt_small)
     slices.update(streams)
-    # Phase 16: the sharded filters.
+    # Phase 16: the sharded filters; phase 17: the mesh paths.
     slices.update(sharded["runs"])
-    ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None})
+    slices.update(meshed["runs"])
+    ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None,
+                       "ekf-10k-mesh": None, "ba-10k-mesh": None})
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()
                    if n.split()[0] == k) for k in KERNELS}
     errs["K4"] = max(errs["K4"], sharded["k4_cross_shard"]["max_abs_err"])
+    errs["K2"] = max(errs["K2"], meshed["k2_cross_shard"]["max_abs_err"])
     fields = ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
               "share", "bytes", "ops", "library_ms", "library_device_ms",
               "shape")
@@ -2595,7 +3040,10 @@ def main() -> int:
         if name == "K2":
             row.update({f: st[f] for f in (
                 "k4_ms", "k4_device_ms", "ragged_P", "ragged_ms",
-                "ragged_device_ms", "ragged_k4_ms", "ragged_k4_device_ms")})
+                "ragged_device_ms", "ragged_k4_ms", "ragged_k4_device_ms")},
+                cross_shard=meshed["k2_cross_shard"])
+        if name == "G1":
+            row.update(at_width=meshed["g1_at_width"])
         if name == "K4":
             row.update(chunk=st["chunk"], shapes=[
                 {f: s[f] for f in ("shape", "ms", "device_ms", "bound_ms",

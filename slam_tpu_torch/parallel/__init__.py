@@ -1,9 +1,10 @@
-"""The multi-device layer (counterpart: slam_tpu.parallel): the
-particle-sharded and landmark-sharded FastSLAM filters on
-``torch.distributed`` (one rank per device: NCCL between cards, gloo
-between CPU processes), their collective resample, and the one-card arm
-of the landmark-block EKF (``parallel.ekf``; its collectives across
-cards are not ported yet)."""
+"""The multi-device layer (counterpart: slam_tpu.parallel) on
+``torch.distributed``, one rank per device (NCCL between cards, gloo
+between CPU processes): the particle-sharded and landmark-sharded
+FastSLAM filters with their collective resample, and the
+landmark-sharded EKF (``parallel.ekf``, Pmm's rows split over a 1-D
+``l`` mesh). The sharded bundle adjustment is
+``posegraph.distributed``."""
 
 from slam_tpu_torch.parallel.mesh import make_mesh, particle_sharding
 from slam_tpu_torch.parallel.resampling import ring_resample

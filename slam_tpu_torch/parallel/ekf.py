@@ -1,24 +1,32 @@
-"""Landmark-block EKF-SLAM, the one-card arm (counterpart:
-slam_tpu.parallel.ekf).
+"""Landmark-sharded EKF-SLAM (counterpart: slam_tpu.parallel.ekf).
 
 At 10k landmarks the joint covariance is [20003, 20003] float32, 1.6 GB,
 and the dense EKF's heading observe alone (two N^3 products per tick)
 cannot run. This estimator keeps the covariance in blocks,
 
-    P = [ P00  P0m ]     P00 [3, 3]     pose block
-        [ P0m' Pmm ]     P0m [3, 2L]    pose-landmark
-                         Pmm [2L, 2L]   landmark-landmark
+    P = [ P00  P0m ]     P00 [3, 3]     pose block        (every rank)
+        [ P0m' Pmm ]     P0m [3, 2L]    pose-landmark     (every rank)
+                         Pmm [2L, 2L]   landmark-landmark (rows split)
 
 and touches Pmm once per observe: the per-tick predict and heading
 observe change P00 and P0m only, their rank-1 Pmm terms wait in ``hk``,
 and the batch update subtracts them together with its own rank-2K term
 in one in-place product over Pmm.
 
-The bodies are written against the rows of Pmm that a shard owns
-(``row_lo`` and ``rows``), as the JAX package's are: on one card the
-only shard owns them all (row_lo = 0, rows = 2L), and the JAX package's
-``psum`` and ``all_gather`` over the landmark axis are the identity.
-The collectives of several cards are not ported (ROADMAP.md, Queue 1).
+Pmm's rows split over a 1-D mesh on the landmark axis ``LM_AXIS``
+(``make_mesh(S, axis="l")``, one rank per device): rank r owns rows
+r 2L/S to (r + 1) 2L/S, and the bodies are written against the owned
+rows (``row_lo``, ``rows``). Per observe, four collectives join the
+shards, where the JAX package has its ``psum`` and ``all_gather``:
+
+- the diagonal 2x2 blocks of Pmm, all-gathered ([L, 2, 2]);
+- Pmm's observed rows, all-reduced ([2K, 2L]; each row has one owner);
+- S's landmark contraction, all-reduced ([2K, 2K]);
+- the gain's landmark rows, all-gathered ([2L, 2K]).
+
+With no mesh the one card owns every row and the collectives are the
+identity; a mesh of one rank runs the same operations through
+collectives over a group of one, with the same result bit for bit.
 
 Writes the JAX package drops (``mode="drop"``) are additions here:
 slots >= n hold exact zeros in x, P0m and Pmm, and every update keeps
@@ -32,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.device import default_device
@@ -54,13 +63,22 @@ from slam_tpu_torch.ops.kalman import (
     innovation,
     solve_lower,
 )
+from slam_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    axis_size,
+    gather_state,
+    mesh_device,
+    psum,
+)
+
+LM_AXIS = "l"
 
 
 class ShardedEKFState(NamedTuple):
     """Joint EKF state with the covariance in blocks.
 
     ``x``: [3 + 2L] joint mean. ``P00``: [3, 3]. ``P0m``: [3, 2L].
-    ``Pmm``: [rows, 2L], the rows this card owns (all 2L on one card).
+    ``Pmm``: [rows, 2L], the rows this rank owns (all 2L on one card).
     ``n``: [] int32 live landmark count. ``da_table``: [n_map] id ->
     slot.
 
@@ -95,9 +113,11 @@ SHARDED_FIELDS = ShardedEKFState._fields
 
 def sharded_ekf_init(capacity: int, n_map_landmarks: int,
                      dtype=torch.float32, n_defer: int = 16,
-                     device=None) -> ShardedEKFState:
+                     device=None, rows: int | None = None
+                     ) -> ShardedEKFState:
     """Zero pose, zero covariance, empty map, ``n_defer`` columns for
-    deferred heading terms; on ``device`` (none named: the card)."""
+    deferred heading terms; on ``device`` (none named: the card).
+    ``rows``: Pmm's rows on this rank (all 2L by default)."""
     device = default_device(device)
     L2 = 2 * capacity
     f32 = dict(dtype=dtype, device=device)
@@ -105,13 +125,29 @@ def sharded_ekf_init(capacity: int, n_map_landmarks: int,
         x=torch.zeros(3 + L2, **f32),
         P00=torch.zeros((3, 3), **f32),
         P0m=torch.zeros((3, L2), **f32),
-        Pmm=torch.zeros((L2, L2), **f32),
+        Pmm=torch.zeros((L2 if rows is None else rows, L2), **f32),
         n=torch.zeros((), dtype=torch.int32, device=device),
         da_table=torch.full((n_map_landmarks,), -1, dtype=torch.int32,
                             device=device),
         hk=torch.zeros((L2, n_defer), **f32),
         hk_n=0,
     )
+
+
+def state_specs(axis: str = LM_AXIS) -> ShardedEKFState:
+    """Specs of the fields (``parallel.mesh``): Pmm's rows split over
+    ``axis``, every other field on every rank."""
+    return ShardedEKFState(x=(), P00=(), P0m=(), Pmm=(axis, None), n=(),
+                           da_table=(), hk=(), hk_n=())
+
+
+class Shard(NamedTuple):
+    """A rank's place on the landmark axis: Pmm's rows ``row_lo`` to
+    ``row_lo + rows``, and the group of the collectives (None: one card,
+    no process group, and the collectives are the identity)."""
+    row_lo: int
+    rows: int
+    group: object = None
 
 
 def sharded_state_from_numpy(arrays, device=None) -> ShardedEKFState:
@@ -143,7 +179,7 @@ def sharded_state_to_numpy(state: ShardedEKFState) -> dict:
 # ---------------------------------------------------------------------------
 
 def _predict_local(state: ShardedEKFState, v, g, Q, wheelbase, dt, phi,
-                   sigma_phi, heading_known: bool, row_lo: int
+                   sigma_phi, heading_known: bool, shard: Shard
                    ) -> ShardedEKFState:
     """Bicycle predict (pose block and cross rows only; Pmm untouched),
     then the optional scalar heading Joseph update, whose Pmm term is a
@@ -178,9 +214,9 @@ def _predict_local(state: ShardedEKFState, v, g, Q, wheelbase, dt, phi,
         state.hk[:, state.hk_n] = u
         return state._replace(hk_n=state.hk_n + 1)
     # No free column (more predicts per observe than n_defer): this
-    # tick's term goes into Pmm now.
-    rows = state.Pmm.shape[0]
-    state.Pmm.addr_(u[row_lo:row_lo + rows], u, alpha=-1.0)
+    # tick's term goes into the owned rows of Pmm now.
+    lo = shard.row_lo
+    state.Pmm.addr_(u[lo:lo + shard.rows], u, alpha=-1.0)
     return state
 
 
@@ -207,7 +243,7 @@ def _owned_rows(Pmm_local, idx, row_lo: int):
 
 def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
                   gate_reject: float, gate_augment: float,
-                  association_known: bool, row_lo: int
+                  association_known: bool, shard: Shard
                   ) -> ShardedEKFState:
     """Observe step: associate -> batch update -> augment, on the
     blocks. Pmm is written in place."""
@@ -215,7 +251,7 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     L = state.capacity
     N2 = 2 * L
     dev = state.x.device
-    rows = state.Pmm.shape[0]
+    row_lo, rows = shard.row_lo, shard.rows
 
     # Deferred heading terms: true Pmm = stored Pmm - hk hk'. The cheap
     # reads below take the low-rank correction; the subtraction itself
@@ -224,8 +260,9 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
 
     lm = state.x[3:].reshape(L, 2)
     valid = torch.arange(L, device=dev) < state.n
-    # The diagonal blocks: each shard's own, gathered (one shard: all).
-    Pjj = _diag_blocks_local(state.Pmm, row_lo)
+    # The diagonal blocks: each shard's own, gathered.
+    Pjj = all_gather_rows(_diag_blocks_local(state.Pmm, row_lo),
+                          shard.group)
     hk_blk = hk.reshape(L, 2, hk.shape[1])
     Pjj = Pjj - torch.einsum("lad,lbd->lab", hk_blk, hk_blk)
 
@@ -258,18 +295,20 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     PHt_p = state.P00 @ Hp.T + torch.einsum(
         "ckb,kab->cka", P0m_obs, Hf).reshape(3, 2 * K)
     # PHt landmark rows: Pm0 Hp' + Pmm Hm'. By symmetry Pmm Hm' needs
-    # only Pmm's observed rows, with the deferred correction.
-    obs_rows = _owned_rows(state.Pmm, gcol, row_lo)          # [2K, 2L]
-    obs_rows = obs_rows - hk[gcol] @ hk.T
+    # only Pmm's observed rows, with the deferred correction; each row
+    # has one owner, so their sum over the shards is exact.
+    obs_rows = psum(_owned_rows(state.Pmm, gcol, row_lo), shard.group)
+    obs_rows = obs_rows - hk[gcol] @ hk.T                    # [2K, 2L]
     HmP = torch.einsum("kab,kbn->kan", Hf, obs_rows.reshape(K, 2, N2)
                        ).reshape(2 * K, N2)
     PHt_m_loc = (state.P0m[:, row_lo:row_lo + rows].T @ Hp.T
                  + HmP[:, row_lo:row_lo + rows].T)           # [rows, 2K]
 
     # S = H P H' + R; the landmark contraction is a sum over shards.
-    HmPHt = torch.einsum("kab,kbc->kac", Hf,
-                         _owned_rows(PHt_m_loc, gcol, row_lo
-                                     ).reshape(K, 2, 2 * K))
+    HmPHt = psum(torch.einsum(
+        "kab,kbc->kac", Hf,
+        _owned_rows(PHt_m_loc, gcol, row_lo).reshape(K, 2, 2 * K)),
+        shard.group)
     S = Hp @ PHt_p + HmPHt.reshape(2 * K, 2 * K)
     RR = torch.kron(torch.eye(K, dtype=S.dtype, device=dev), R)
     S = 0.5 * (S + S.T) + RR
@@ -280,7 +319,7 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     # W1 = PHt L^-T ; P -= W1 W1' ; x += PHt S^-1 v.
     W1_p = solve_lower(Lc, PHt_p.T).T                        # [3, 2K]
     W1_m_loc = solve_lower(Lc, PHt_m_loc.T).T                # [rows, 2K]
-    W1_m = W1_m_loc                     # gathered over the shards: one
+    W1_m = all_gather_rows(W1_m_loc, shard.group)            # [2L, 2K]
     sv = solve_lower(Lc, v)
     x = state.x + torch.cat([W1_p @ sv, W1_m @ sv])
     x[2] = wrap_angle(x[2])
@@ -295,11 +334,11 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
                            hk=state.hk.zero_(), hk_n=0)
 
     # ---- augment -------------------------------------------------------
-    return _augment_local(state, z, ids, is_new, Re, row_lo)
+    return _augment_local(state, z, ids, is_new, Re, shard)
 
 
 def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
-                   row_lo: int) -> ShardedEKFState:
+                   shard: Shard) -> ShardedEKFState:
     """Batch augment on the blocks. New feature i at slot s_i:
         x[3 + 2s_i : 3 + 2s_i + 2]  = xf_i
         P0m[:, 2s_i : 2s_i + 2]     = P00 Gv_i'
@@ -308,7 +347,7 @@ def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
     zero before, so the values are added in place; masked observations
     add zeros."""
     K = z.shape[0]
-    rows = state.Pmm.shape[0]
+    row_lo, rows = shard.row_lo, shard.rows
 
     slot, ok = rbpf.new_slots(state, is_new)
     okf = ok.to(state.x.dtype)
@@ -347,24 +386,44 @@ def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
 # ---------------------------------------------------------------------------
 
 class ShardedEkfSlam:
-    """Landmark-block EKF-SLAM on one device (the card, unless
-    ``device`` names another), with the estimator interface of
-    ``models.ekf.EkfSlam``. The one shard owns every row of Pmm
-    (row_lo = 0), so the capacity needs no padding."""
+    """Landmark-sharded EKF-SLAM with the estimator interface of
+    ``models.ekf.EkfSlam``. ``mesh``: a 1-D mesh on the landmark axis
+    (``make_mesh(S, axis="l")``); every rank of it runs the estimator,
+    on the mesh's device, and ``init`` returns the rank's block. The
+    capacity is padded to a multiple of S, so that every rank owns whole
+    landmarks. With no mesh: one card (the card, unless ``device`` names
+    another) owns every row."""
 
     IS_EKF = True
 
     def __init__(self, config: SlamConfig, n_map_landmarks: int,
-                 device=None):
+                 mesh: DeviceMesh | None = None, device=None):
         self.config = config
         self.n_map = n_map_landmarks
-        self.device = default_device(device)
-        self.capacity = config.max_landmarks or n_map_landmarks
+        self.mesh = mesh
+        cap = config.max_landmarks or n_map_landmarks
+        if mesh is None:
+            self.device = default_device(device)
+            self.axis, S, group, rank = LM_AXIS, 1, None, 0
+        else:
+            self.device = mesh_device(mesh) if device is None else device
+            self.axis = mesh.mesh_dim_names[0]
+            S = axis_size(mesh, self.axis)
+            group = mesh.get_group(self.axis)
+            rank = mesh.get_local_rank(self.axis)
+        # Pad so that every shard owns whole landmarks: 2L % (2S) == 0.
+        self.capacity = -(-cap // S) * S
+        rows = 2 * self.capacity // S
+        self.shard = Shard(row_lo=rank * rows, rows=rows, group=group)
         self.Q, self.R, self.Re = noise_matrices(config, self.device)
+
+    def state_specs(self) -> ShardedEKFState:
+        """How the state splits over the mesh (``parallel.mesh``)."""
+        return state_specs(self.axis)
 
     def init(self, n_particles=None) -> ShardedEKFState:
         return sharded_ekf_init(self.capacity, self.n_map,
-                                device=self.device)
+                                device=self.device, rows=self.shard.rows)
 
     def predict(self, state, generator, vn, gn, phi) -> ShardedEKFState:
         del generator
@@ -372,7 +431,7 @@ class ShardedEkfSlam:
         with full_f32():
             return _predict_local(
                 state, vn, gn, self.Q, cfg.WHEELBASE, cfg.DT_CONTROLS, phi,
-                cfg.sigmaT, bool(cfg.SWITCH_HEADING_KNOWN), row_lo=0)
+                cfg.sigmaT, bool(cfg.SWITCH_HEADING_KNOWN), self.shard)
 
     def update(self, state, generator, z, ids, zmask) -> ShardedEKFState:
         del generator
@@ -381,16 +440,20 @@ class ShardedEkfSlam:
             return _update_local(
                 state, z, ids, zmask, self.R, self.Re, cfg.GATE_REJECT,
                 cfg.GATE_AUGMENT, bool(cfg.SWITCH_ASSOCIATION_KNOWN),
-                row_lo=0)
+                self.shard)
 
     def pose(self, state) -> torch.Tensor:
         """The joint state's head, x[:3], as a copy."""
         return state.x[:3].clone()
 
 
-def dense_covariance(state: ShardedEKFState) -> torch.Tensor:
+def dense_covariance(state: ShardedEKFState,
+                     mesh: DeviceMesh | None = None) -> torch.Tensor:
     """The dense [3+2L, 3+2L] joint covariance, with the deferred
-    heading terms folded (for tests)."""
+    heading terms folded (for tests). With ``mesh``, every rank of it
+    calls this and gets the whole matrix: Pmm's rows are gathered."""
+    if mesh is not None:
+        state = gather_state(state, mesh, state_specs(mesh.mesh_dim_names[0]))
     hk = state.hk[:, :state.hk_n]
     Pmm = state.Pmm - hk @ hk.T
     top = torch.cat([state.P00, state.P0m], dim=1)

@@ -39,7 +39,11 @@ from slam_tpu_torch.models.fastslam2 import (
     proposal_noise,
 )
 from slam_tpu_torch.models.particles import ParticleState, init_particles
-from slam_tpu_torch.parallel.mesh import axis_size, mesh_device
+from slam_tpu_torch.parallel.mesh import (
+    axis_size,
+    mesh_device,
+    particle_state_specs,
+)
 from slam_tpu_torch.parallel.resampling import (
     ring_resample,
     sharded_estimate_position,
@@ -61,8 +65,9 @@ class RankStream:
     """The rank's random stream for the run that ``gen`` (the Runner's
     generator) drives: a generator on ``device`` seeded with
     ``fold_in(gen.initial_seed(), index)``, made anew for each run
-    generator. ``index`` is the particle shard, so ranks that hold the
-    same particles (landmark shards) draw the same numbers."""
+    generator, unless ``restore`` gave it one. ``index`` is the particle
+    shard, so ranks that hold the same particles (landmark shards) draw
+    the same numbers."""
 
     def __init__(self, index: int, device: torch.device):
         self.index, self.device = index, device
@@ -74,6 +79,14 @@ class RankStream:
                 fold_in(gen.initial_seed(), self.index))
             self._run = gen
         return self._gen
+
+    def restore(self, gen: torch.Generator, state: torch.Tensor) -> None:
+        """Continue a saved stream: a generator in ``state`` (a
+        ``get_state()``), bound to the run generator ``gen`` (a resumed
+        run's), so that calls with ``gen`` draw on from it."""
+        self._gen = torch.Generator(device=self.device)
+        self._gen.set_state(state)
+        self._run = gen
 
 
 class _ShardedFastSlamBase:
@@ -106,6 +119,10 @@ class _ShardedFastSlamBase:
         self.stream = RankStream(mesh.get_local_rank(self.axis), self.device)
         self.Q = np.diag(np.asarray(config.Qe, np.float32))
         self.R = np.diag(np.asarray(config.Re, np.float32))
+
+    def state_specs(self) -> ParticleState:
+        """How the state splits over the mesh (``parallel.mesh``)."""
+        return particle_state_specs(self.axis)
 
     @property
     def n_min(self) -> float:

@@ -116,6 +116,9 @@ class _LandmarkShardedBase(_ShardedFastSlamBase):
         self.capacity = -(-cap // self.n_l) * self.n_l
         self.lo = mesh.get_local_rank(L_AXIS) * (self.capacity // self.n_l)
 
+    def state_specs(self) -> ParticleState:
+        return state_specs_2d()
+
     def init(self, n_particles: int | None = None) -> ParticleState:
         return self._init(n_particles or self.n_particles,
                           self.capacity // self.n_l)

@@ -13,6 +13,9 @@ state and ``gather_state`` assembles the global state from the blocks.
 Every rank of the process group must call ``make_mesh``, as each call
 creates the mesh's process groups; a rank outside the mesh gets one
 whose ``get_coordinate()`` is None.
+
+A field that is no tensor (the EKF state's host count ``hk_n``) is the
+same on every rank: ``shard_state`` and ``gather_state`` pass it on.
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ def shard_state(state, mesh: DeviceMesh, specs, device=None):
     out = {}
     for name, spec in zip(state._fields, specs):
         t = getattr(state, name)
+        if not isinstance(t, torch.Tensor):
+            out[name] = t
+            continue
         for dim, axis in enumerate(spec):
             if axis is not None:
                 t = t.chunk(axis_size(mesh, axis), dim)[
@@ -96,6 +102,9 @@ def gather_state(state, mesh: DeviceMesh, specs):
     out = {}
     for name, spec in zip(state._fields, specs):
         t = getattr(state, name)
+        if not isinstance(t, torch.Tensor):
+            out[name] = t
+            continue
         for dim, axis in enumerate(spec):
             if axis is not None:
                 parts = [torch.empty_like(t)
@@ -105,6 +114,54 @@ def gather_state(state, mesh: DeviceMesh, specs):
                 t = torch.cat(parts, dim)
         out[name] = t
     return type(state)(**out)
+
+
+def global_shapes(state, mesh: DeviceMesh, specs):
+    """The global state's structure without its values: each tensor
+    field an empty tensor on the ``meta`` device, of the shape that
+    ``gather_state`` would return; other fields as they are. A template
+    for reading a global state, made with no collective."""
+    out = {}
+    for name, spec in zip(state._fields, specs):
+        t = getattr(state, name)
+        if isinstance(t, torch.Tensor):
+            shape = list(t.shape)
+            for dim, axis in enumerate(spec):
+                if axis is not None:
+                    shape[dim] *= axis_size(mesh, axis)
+            t = torch.empty(shape, dtype=t.dtype, device="meta")
+        out[name] = t
+    return type(state)(**out)
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group``, in place (JAX's
+    ``psum``); ``t`` itself where ``group`` is None (one device, no
+    process group)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (the same shape on each) along
+    dim 0, in rank order (JAX's tiled ``all_gather``); ``t`` itself
+    where ``group`` is None."""
+    if group is None:
+        return t
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],
+                       *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def mesh_all_gather(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each), stacked by mesh
+    coordinate: [*mesh.shape, *t.shape], on every rank. One all-gather
+    along each mesh axis, the last first."""
+    for dim in reversed(range(mesh.ndim)):
+        t = all_gather_rows(t[None], mesh.get_group(dim))
+    return t
 
 
 def particle_sharding(mesh: DeviceMesh, axis: str = PARTICLE_AXIS):

@@ -107,12 +107,15 @@ def _run_local(state, wn, u, dither, particle_fields):
     stratified gather. On the card at Pl % 512 == 0 it runs G2 from the
     offspring bounds (JAX's ``bounds_gather_multi`` arm on a TPU), with
     the dither table read at the bounds' positions; otherwise G1 by the
-    ancestors that a search of the prefix sum finds for u."""
+    ancestors that a search of the prefix sum finds for u. The prefix
+    sums here are blocked (``ops.resampling._cumsum_blocked``): a CUDA
+    ``torch.cumsum`` of a long vector rounds differently from run to
+    run, and one ulp moves an ancestor."""
     Pl = wn.shape[0]
     if wn.is_cuda and Pl % rbpf.BOUNDS_ALIGN == 0:
         return _local_bounds_resample(state, wn, lambda pos: dither[pos],
                                       particle_fields)
-    idx = torch.searchsorted(torch.cumsum(wn, 0), u, out_int32=True)
+    idx = torch.searchsorted(rs._cumsum_blocked(wn), u, out_int32=True)
     idx = torch.clamp(idx, 0, Pl - 1)
     return _unpack(state, particle_fields,
                    sorted_gather_multi(_rows(state, particle_fields), idx))
@@ -138,7 +141,7 @@ def _run_ring(state, wn, u, group, particle_fields):
     last prefix sum by rounding)."""
     S, me = dist.get_world_size(group), dist.get_rank(group)
     Pl = wn.shape[0]
-    csum = torch.cumsum(wn, 0)
+    csum = rs._cumsum_blocked(wn)
     totals = torch.empty(S, dtype=wn.dtype, device=wn.device)
     dist.all_gather_into_tensor(totals, wn.sum().reshape(1), group=group)
     bases = torch.cumsum(totals, 0) - totals                  # exclusive

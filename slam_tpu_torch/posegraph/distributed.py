@@ -1,17 +1,17 @@
-"""Schur-complement bundle adjustment over a landmark-sharded layout, the
-one-card arm (counterpart: slam_tpu.posegraph.distributed).
+"""Schur-complement bundle adjustment over a landmark-sharded layout
+(counterpart: slam_tpu.posegraph.distributed).
 
-The JAX package shards the landmark axis over a 1-D device mesh. Each
-shard assembles the normal-equation pieces of its landmark block (every
-observation belongs to one landmark, hence to one shard) and its part of
-S's contraction, and one psum of the [3T, 3T] partials joins them; the
-reduced pose solve is replicated and the landmark back-substitution
-stays local. The bodies here are written against one shard's block
-(``shard``, ``L_local``), as the JAX package's are. On one card there is
-one shard (``N_SHARDS``): it owns every landmark, the psum is the
-identity (``_psum``) and the landmark axis needs no padding. The
-collectives of several cards wait for ``torch.distributed`` (ROADMAP.md,
-Queue 1).
+The landmark axis splits over a 1-D mesh on ``LM_AXIS`` (one rank per
+device; ``mesh_over(ranks, (S,), ("l",))``). Each rank assembles the
+normal-equation pieces of its landmark block (every observation belongs
+to one landmark, hence to one shard) and its part of S's contraction;
+all-reduces over the mesh's group join them: App's observation diagonal
+and bp's observation part, the [3T, 3T] partial W All^-1 W' and
+W All^-1 bl, and the sharded cost. The reduced pose solve runs on every
+rank on the same sums, the landmark back-substitution stays local, and
+the landmarks are gathered once, at the end. With no mesh the one card
+is the only shard and the sums are its own values; a mesh of one rank
+runs the same operations through collectives over a group of one.
 
 Kept from the JAX solver, where it differs from ``ba.solve_ba``: the
 first cost is ``_ba_cost``'s and every later one ``_sharded_cost``'s,
@@ -19,15 +19,20 @@ whose range is sqrt(max(., 1e-24)); observations outside a shard's
 block are dropped from its sums; the host reads once per LM iteration
 in JAX (its retry loop runs on the device) and ``n_iters`` counts the
 iteration that failed. Here the retry loop runs on the host, with one
-read per trial; ``solve_ba_sharded`` reports the reads of a solve.
+read per trial of the all-reduced cost, the same on every rank, so
+every rank takes the same decisions; ``solve_ba_sharded`` reports the
+reads of a solve.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.models.ekf import full_f32
+from slam_tpu_torch.parallel.mesh import all_gather_rows, psum
 from slam_tpu_torch.posegraph.ba import (
     BAProblem,
     ObsPlan,
@@ -51,14 +56,16 @@ from slam_tpu_torch.posegraph.ba import (
     obs_plan,
 )
 
-# Landmark shards on one card.
-N_SHARDS = 1
+LM_AXIS = "l"
 
 
-def _psum(x):
-    """The sum over the landmark shards: on one card, the one shard's
-    own value."""
-    return x
+def _shards(mesh: DeviceMesh | None):
+    """(shard count, this rank's shard, the group) of a 1-D landmark
+    mesh; (1, 0, None) without one."""
+    if mesh is None:
+        return 1, 0, None
+    group = mesh.get_group(0)
+    return dist.get_world_size(group), mesh.get_local_rank(0), group
 
 
 def _owned(lm_idx, mask, L_local: int, shard: int):
@@ -76,15 +83,15 @@ def _shard_plan(lm_idx, mask, L_local: int, shard: int = 0) -> ObsPlan:
 
 
 def _assemble_local(poses, lm_local, z, lm_idx, mask, Rinv, lam,
-                    L_local: int, shard: int, plan: ObsPlan):
+                    L_local: int, shard: int, plan: ObsPlan, group):
     """A shard's observation-side assembly and Schur partials: (App's
     observation diagonal [T, 3, 3], bp's [T, 3], the summed W All^-1 W'
     [3T, 3T] and W All^-1 bl [3T], and the shard's W, All^-1, bl)."""
     own, local_idx = _owned(lm_idx, mask, L_local, shard)
     Hv, Hf, r = _obs_terms(poses, lm_local, z, local_idx, own)
     HvR = torch.einsum("tkab,ac->tkbc", Hv, Rinv)
-    App_diag = _psum(torch.einsum("tkab,tkbc->tac", HvR, Hv))
-    bp_obs = _psum(torch.einsum("tkab,tkb->ta", HvR, r))
+    App_diag = psum(torch.einsum("tkab,tkbc->tac", HvR, Hv), group)
+    bp_obs = psum(torch.einsum("tkab,tkb->ta", HvR, r), group)
 
     HfR = torch.einsum("tkab,ac->tkbc", Hf, Rinv)
     All_terms = torch.einsum("tkab,tkbc->tkac", HfR, Hf)
@@ -96,22 +103,23 @@ def _assemble_local(poses, lm_local, z, lm_idx, mask, Rinv, lam,
 
     Allinv = _inv_2x2_blocks(_damped(All, lam))
     WA = _times_blocks(W, Allinv)
-    SW = _psum(WA @ W.T)
-    rhs_lm = _psum(WA @ bl.reshape(-1))
+    SW = psum(WA @ W.T, group)
+    rhs_lm = psum(WA @ bl.reshape(-1), group)
     return App_diag, bp_obs, SW, rhs_lm, W, Allinv, bl
 
 
-def _sharded_cost(poses, landmarks, odom, odom_info, z, lm_idx, mask, R,
-                  anchor, L_local: int):
+def _sharded_cost(poses, lm_local, odom, odom_info, z, lm_idx, mask, R,
+                  anchor, shard: int, group):
     """The total cost with the observation term scored per landmark
-    shard (each shard the observations of its landmarks, summed over
-    shards); the odometry and gauge terms once."""
+    shard (each shard the observations of its block ``lm_local``,
+    summed over the shards); the odometry and gauge terms once, on
+    every rank."""
     dtype = poses.dtype
     Rinv = _inv(R.to(dtype))
+    L_local = lm_local.shape[0]
 
-    def obs_cost(shard):
+    def obs_cost():
         own, local_idx = _owned(lm_idx, mask, L_local, shard)
-        lm_local = landmarks[shard * L_local:(shard + 1) * L_local]
         lm = lm_local[local_idx.long()]
         dx = lm[..., 0] - poses[:, None, 0]
         dy = lm[..., 1] - poses[:, None, 1]
@@ -121,19 +129,21 @@ def _sharded_cost(poses, landmarks, odom, odom_info, z, lm_idx, mask, R,
                         -1) * own.to(dtype)[..., None]
         return torch.einsum("tka,ab,tkb->", r, Rinv, r)
 
-    c_obs = _psum(obs_cost(0))
+    c_obs = psum(obs_cost(), group)
     return c_obs + _pose_cost(poses, odom, odom_info, anchor)
 
 
-def make_sharded_gn_step(T: int, L: int):
+def make_sharded_gn_step(mesh: DeviceMesh | None, T: int, L: int):
     """One sharded Gauss-Newton trial step for T poses and L landmarks
-    (the JAX package's ``_make_trial_fn``, which its
-    ``make_sharded_gn_step`` jits): ``step(poses, landmarks, odom,
-    odom_info, z, lm_idx, mask, R, anchor, damping, plan)``, ``plan``
-    the shard's ``_shard_plan``."""
-    if L % N_SHARDS:
-        raise ValueError(f"L={L} must divide over {N_SHARDS} shards")
-    L_local = L // N_SHARDS
+    over the landmark mesh ``mesh`` (None: one shard; the JAX package's
+    ``_make_trial_fn``, which its ``make_sharded_gn_step`` jits):
+    ``step(poses, lm_local, odom, odom_info, z, lm_idx, mask, R, anchor,
+    damping, plan)`` -> (poses, lm_local) on this rank's block of
+    L / S landmarks, ``plan`` the shard's ``_shard_plan``."""
+    n_shards, shard, group = _shards(mesh)
+    if L % n_shards:
+        raise ValueError(f"L={L} must divide over {n_shards} shards")
+    L_local = L // n_shards
 
     def step(poses, landmarks, odom, odom_info, z, lm_idx, mask, R,
              anchor, damping, plan: ObsPlan):
@@ -141,7 +151,8 @@ def make_sharded_gn_step(T: int, L: int):
         Rinv = _inv(R.to(dtype))
         lam = torch.as_tensor(damping, dtype=dtype, device=poses.device)
         App_diag, bp_obs, SW, rhs_lm, W, Allinv, bl = _assemble_local(
-            poses, landmarks, z, lm_idx, mask, Rinv, lam, L_local, 0, plan)
+            poses, landmarks, z, lm_idx, mask, Rinv, lam, L_local, shard,
+            plan, group)
 
         # The landmark-free terms: odometry chain and gauge.
         Aaa, Aab, Abb, ba, bb = _odom_blocks(poses, odom, odom_info)
@@ -159,22 +170,24 @@ def make_sharded_gn_step(T: int, L: int):
     return step
 
 
-def make_lm_iteration(T: int, L: int, max_retries: int = 6):
-    """One Levenberg-Marquardt iteration: ``lm_iter(poses, landmarks,
-    cost, lam, odom, odom_info, z, lm_idx, mask, R, anchor, plan)`` ->
-    (poses, landmarks, cost, damping, accepted, the cost on the host,
-    trials). Trial steps from the same point with the damping raised
-    x10 after each rejection, until one does not raise the sharded cost
-    or ``max_retries`` retries are spent; one host read per trial."""
-    trial = make_sharded_gn_step(T, L)
-    L_local = L // N_SHARDS
+def make_lm_iteration(mesh: DeviceMesh | None, T: int, L: int,
+                      max_retries: int = 6):
+    """One Levenberg-Marquardt iteration over the landmark mesh
+    ``mesh``: ``lm_iter(poses, lm_local, cost, lam, odom, odom_info, z,
+    lm_idx, mask, R, anchor, plan)`` -> (poses, lm_local, cost, damping,
+    accepted, the cost on the host, trials). Trial steps from the same
+    point with the damping raised x10 after each rejection, until one
+    does not raise the sharded cost or ``max_retries`` retries are
+    spent; one host read per trial, of the all-reduced cost."""
+    trial = make_sharded_gn_step(mesh, T, L)
+    _, shard, group = _shards(mesh)
 
     def lm_iter(poses, landmarks, cost, lam, odom, odom_info, z, lm_idx,
                 mask, R, anchor, plan: ObsPlan):
         static = (odom, odom_info, z, lm_idx, mask, R, anchor)
         for tries in range(1, max_retries + 2):
             tp, tl = trial(poses, landmarks, *static, lam, plan)
-            tc = _sharded_cost(tp, tl, *static, L_local)
+            tc = _sharded_cost(tp, tl, *static, shard, group)
             acc = torch.isfinite(tc) & (tc <= cost)
             acc_h, tc_h = torch.stack([acc.to(tc.dtype), tc]).tolist()
             if acc_h:
@@ -185,19 +198,27 @@ def make_lm_iteration(T: int, L: int, max_retries: int = 6):
     return lm_iter
 
 
-def solve_ba_sharded(prob: BAProblem, iters: int = 10,
-                     damping: float = 1e-3, tol: float = 1e-8,
-                     max_retries: int = 6, return_info: bool = False):
+def solve_ba_sharded(prob: BAProblem, mesh: DeviceMesh | None = None,
+                     iters: int = 10, damping: float = 1e-3,
+                     tol: float = 1e-8, max_retries: int = 6,
+                     return_info: bool = False):
     """Schur-complement BA over the landmark-sharded layout, on the
-    problem's device. The Levenberg-Marquardt schedule of ``solve_ba``
-    (a trial kept iff the total cost does not rise, damping x10 on a
-    rejection, /3 on an acceptance), iterated by ``make_lm_iteration``.
-    Returns (poses [T, 3], landmarks [L, 2]); with ``return_info`` also
-    a dict: the cost after each accepted iteration, ``n_iters`` (the
-    failed one included), ``n_steps`` (trials) and ``host_reads`` (the
-    plan's, the first cost's and one per trial)."""
-    L_pad = -(-prob.L // N_SHARDS) * N_SHARDS
-    lm_iter = make_lm_iteration(prob.T, L_pad, max_retries=max_retries)
+    problem's device: over the 1-D landmark mesh ``mesh``, whose every
+    rank calls this with the same problem, or on one shard (None). The
+    landmarks pad to a multiple of the shard count, and rank r owns
+    block r. The Levenberg-Marquardt schedule of ``solve_ba`` (a trial
+    kept iff the total cost does not rise, damping x10 on a rejection,
+    /3 on an acceptance), iterated by ``make_lm_iteration``. Returns
+    (poses [T, 3], landmarks [L, 2], gathered), the same on every rank;
+    with ``return_info`` also a dict: the cost after each accepted
+    iteration, ``n_iters`` (the failed one included), ``n_steps``
+    (trials) and ``host_reads`` (the plan's, the first cost's and one
+    per trial)."""
+    n_shards, shard, group = _shards(mesh)
+    L_pad = -(-prob.L // n_shards) * n_shards
+    L_local = L_pad // n_shards
+    lm_iter = make_lm_iteration(mesh, prob.T, L_pad,
+                                max_retries=max_retries)
     with full_f32():
         poses = prob.poses0.to(torch.float32)
         landmarks = prob.landmarks0.to(torch.float32)
@@ -208,15 +229,17 @@ def solve_ba_sharded(prob: BAProblem, iters: int = 10,
                 (L_pad - prob.L, 2))])
         static = (prob.odom, prob.odom_info, prob.z, prob.lm_idx,
                   prob.mask, prob.R, poses[0])
-        plan = _shard_plan(prob.lm_idx, prob.mask, L_pad // N_SHARDS)
+        plan = _shard_plan(prob.lm_idx, prob.mask, L_local, shard)
         lam = torch.full((), damping, dtype=torch.float32,
                          device=poses.device)
+        # The first cost from the whole initial map, on every rank.
         cost = _ba_cost(poses, landmarks, *static)
         cost_h = float(cost)
+        lm_local = landmarks[shard * L_local:(shard + 1) * L_local]
         costs, n_iters, n_steps, reads = [cost_h], 0, 0, 2
         for _ in range(iters):
-            poses, landmarks, cost, lam, acc, new_cost_h, tries = lm_iter(
-                poses, landmarks, cost, lam, *static, plan)
+            poses, lm_local, cost, lam, acc, new_cost_h, tries = lm_iter(
+                poses, lm_local, cost, lam, *static, plan)
             n_iters += 1
             n_steps += tries
             reads += tries
@@ -227,7 +250,7 @@ def solve_ba_sharded(prob: BAProblem, iters: int = 10,
             costs.append(cost_h)
             if gain <= tol * max(cost_h, 1.0):
                 break
-    landmarks = landmarks[:prob.L]
+    landmarks = all_gather_rows(lm_local, group)[:prob.L]
     if return_info:
         return poses, landmarks, {"costs": costs, "n_iters": n_iters,
                                   "n_steps": n_steps, "host_reads": reads}

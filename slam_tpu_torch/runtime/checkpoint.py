@@ -28,6 +28,15 @@ so a checkpoint loads only on the device type that wrote it.
 Restoring a checkpoint reproduces the unbroken run bit for bit: every
 random draw comes from the two saved streams, and the kernels are
 deterministic.
+
+A sharded run (an estimator with a ``mesh``) writes one checkpoint for
+all its ranks (``save_sharded_checkpoint``): the global state in the
+one-device layout, which every rank gathers and the mesh's first rank
+writes, with each rank's own stream (``parallel.filter.RankStream``)
+as ``streams`` [*mesh shape, state bytes] and the mesh's shape in the
+manifest as ``mesh_shape``. On a resume every rank reads the file and
+cuts its block (``load_sharded_checkpoint``). A checkpoint loads only
+on a mesh of the shape that wrote it (no mesh: none).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from slam_tpu_torch.device import default_device
 from slam_tpu_torch.models.ekf import EKFState, ekf_state_from_numpy
@@ -45,6 +55,12 @@ from slam_tpu_torch.models.particles import (
     ParticleState,
     deferred_state_from_numpy,
     state_from_numpy,
+)
+from slam_tpu_torch.parallel.mesh import (
+    gather_state,
+    global_shapes,
+    mesh_all_gather,
+    shard_state,
 )
 from slam_tpu_torch.sim.simulator import SimState
 from slam_tpu_torch.sim.vehicle import VehicleState
@@ -62,14 +78,14 @@ def _sim_leaves(sim_state: SimState) -> list:
             np.asarray(sim_state.tick, np.int32)]
 
 
-def _est_leaves(tree, arrays: list, host: list) -> None:
-    """The tensors of a state, its fields depth first, into ``arrays``;
+def _est_leaves(tree, tensors: list, host: list) -> None:
+    """The tensors of a state, its fields depth first, into ``tensors``;
     its host values (bools and ints) into ``host``."""
     for v in tree:
         if isinstance(v, tuple):
-            _est_leaves(v, arrays, host)
+            _est_leaves(v, tensors, host)
         elif isinstance(v, torch.Tensor):
-            arrays.append(_host(v))
+            tensors.append(v)
         else:
             host.append(v)
 
@@ -98,18 +114,27 @@ def _generator(state: np.ndarray, device: torch.device) -> torch.Generator:
     return gen
 
 
+def _shape_name(shape) -> str:
+    return "no mesh" if shape is None else f"a {tuple(shape)} mesh"
+
+
 def save_checkpoint(path: str, sim_state: SimState, est_state, gen,
-                    superstep: int, meta: dict | None = None) -> str:
+                    superstep: int, meta: dict | None = None,
+                    streams: np.ndarray | None = None,
+                    mesh_shape: tuple | None = None) -> str:
     """Write ``<path>.npz`` and ``<path>.json``: the simulator state,
     the estimator state, the run generator ``gen`` and the superstep
-    reached. Returns the npz path."""
+    reached; a sharded run's rank ``streams`` and ``mesh_shape`` (see
+    ``save_sharded_checkpoint``). Returns the npz path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     est, host = [], []
     _est_leaves(est_state, est, host)
     sim = _sim_leaves(sim_state)
     arrays = {"key": _host(gen.get_state())}
     arrays.update({f"sim_{i}": a for i, a in enumerate(sim)})
-    arrays.update({f"est_{i}": a for i, a in enumerate(est)})
+    arrays.update({f"est_{i}": _host(t) for i, t in enumerate(est)})
+    if streams is not None:
+        arrays["streams"] = streams
     np.savez_compressed(path + ".npz", **arrays)
     manifest = {
         "superstep": int(superstep),
@@ -119,22 +144,32 @@ def save_checkpoint(path: str, sim_state: SimState, est_state, gen,
         "est_host": host,
         "device_type": gen.device.type,
     }
+    if mesh_shape is not None:
+        manifest["mesh_shape"] = list(mesh_shape)
     with open(path + ".json", "w") as fh:
         json.dump(manifest, fh)
     return path + ".npz"
 
 
 def load_checkpoint(path: str, sim_template: SimState, est_template,
-                    device=None):
+                    device=None, mesh_shape: tuple | None = None):
     """(sim_state, est_state, gen, superstep) from ``path`` (without
     extensions), every tensor on ``device`` (none named: the card,
     ``default_device``). ``est_template`` (a fresh ``init()`` output)
     gives the estimator state's structure; the simulator state's is
-    fixed, and ``sim_template`` is taken for the JAX signature. Raises ``ValueError`` when the structure differs or
-    the checkpoint was written on another device type."""
+    fixed, and ``sim_template`` is taken for the JAX signature. Raises
+    ``ValueError`` when the structure differs, the checkpoint was
+    written on another device type, or on a mesh of another shape than
+    ``mesh_shape`` (None: a run with no mesh)."""
     device = default_device(device)
     with open(path + ".json") as fh:
         manifest = json.load(fh)
+    saved = manifest.get("mesh_shape")
+    want = None if mesh_shape is None else list(mesh_shape)
+    if saved != want:
+        raise ValueError(f"checkpoint {path} was written on "
+                         f"{_shape_name(saved)} and cannot resume a run on "
+                         f"{_shape_name(want)}")
     wrote = manifest.get("device_type")
     if wrote != device.type:
         raise ValueError(
@@ -160,6 +195,54 @@ def load_checkpoint(path: str, sim_template: SimState, est_template,
                              iter(manifest["est_host"]), device)
     return (sim_state, est_state, _generator(key, device),
             manifest["superstep"])
+
+
+def save_sharded_checkpoint(path: str, sim_state: SimState, est, est_state,
+                            gen, superstep: int,
+                            meta: dict | None = None) -> str:
+    """The checkpoint of a sharded run, one for all ranks: every rank of
+    ``est.mesh`` calls this with its block ``est_state``. The blocks are
+    gathered into the global state (``est.state_specs()``), each rank's
+    stream state (``est.stream``, where the estimator draws) gathered
+    by mesh coordinate, and the mesh's first rank writes them with
+    ``save_checkpoint``; every rank returns once the files are
+    written. Returns the npz path."""
+    mesh = est.mesh
+    state = gather_state(est_state, mesh, est.state_specs())
+    stream = getattr(est, "stream", None)
+    streams = None
+    if stream is not None:
+        mine = stream(gen).get_state().to(est.device)
+        streams = _host(mesh_all_gather(mine, mesh))
+    if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+        save_checkpoint(path, sim_state, state, gen, superstep, meta,
+                        streams=streams, mesh_shape=tuple(mesh.mesh.shape))
+    # A barrier along each mesh axis in turn: on a grid, the second
+    # ends only after every first-axis barrier, the writer's among them.
+    for dim in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(dim))
+    return path + ".npz"
+
+
+def load_sharded_checkpoint(path: str, sim_template: SimState, est,
+                            est_template):
+    """(sim_state, est_state, gen, superstep) of this rank from a
+    checkpoint that ``save_sharded_checkpoint`` wrote: the global state
+    read and this rank's block cut out (``est_template``, a fresh
+    ``init()``, gives the block's structure), on ``est.device``; the
+    rank's stream continues from its saved state, bound to the returned
+    run generator. Raises ``ValueError`` on a mesh of another shape."""
+    mesh, specs = est.mesh, est.state_specs()
+    sim_state, state, gen, superstep = load_checkpoint(
+        path, sim_template, global_shapes(est_template, mesh, specs),
+        est.device, mesh_shape=tuple(mesh.mesh.shape))
+    est_state = shard_state(state, mesh, specs, est.device)
+    stream = getattr(est, "stream", None)
+    if stream is not None:
+        with np.load(path + ".npz") as data:
+            mine = data["streams"][tuple(mesh.get_coordinate())]
+        stream.restore(gen, torch.from_numpy(mine.copy()))
+    return sim_state, est_state, gen, superstep
 
 
 def load_jax_checkpoint(path: str, sim_template: SimState, est_template,

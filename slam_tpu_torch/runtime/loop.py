@@ -227,7 +227,9 @@ class Runner:
         """The run in chunks of ``every`` supersteps, with a checkpoint
         (``runtime.checkpoint``) after each; with ``resume``, from the
         checkpoint at ``ckpt_path`` if there is one. A resumed run equals
-        the unbroken run bit for bit.
+        the unbroken run bit for bit. A sharded estimator (one with a
+        ``mesh``; every rank of it runs this) writes one checkpoint for
+        all ranks and resumes each from it (``runtime.checkpoint``).
 
         The JAX package's semantics: only whole chunks run, so when
         ``every`` does not divide the supersteps the last chunk runs past
@@ -240,20 +242,24 @@ class Runner:
         ``wall_seconds`` covers every chunk with its trace copy and
         save; ``host_syncs`` counts the gates, as in ``run`` (a run of one
         chunk reads the same as ``run``)."""
-        from slam_tpu_torch.runtime.checkpoint import (
-            load_checkpoint,
-            save_checkpoint,
-        )
+        from slam_tpu_torch.runtime import checkpoint as ckpt
 
         period = self.config.steps_per_observe
         if n_ticks is None:
             n_ticks = self.estimate_run_ticks()
         n_supersteps = n_ticks // period
         sim_state, est_state, gen, build_s = self._init(seed)
+        sharded = getattr(self.est, "mesh", None) is not None
+        meta = {"method": self.method, "seed": seed}
         start = 0
         if resume and os.path.exists(ckpt_path + ".json"):
-            sim_state, est_state, gen, start = load_checkpoint(
-                ckpt_path, sim_state, est_state, self.device)
+            if sharded:
+                sim_state, est_state, gen, start = (
+                    ckpt.load_sharded_checkpoint(ckpt_path, sim_state,
+                                                 self.est, est_state))
+            else:
+                sim_state, est_state, gen, start = ckpt.load_checkpoint(
+                    ckpt_path, sim_state, est_state, self.device)
             if start >= n_supersteps:
                 raise ValueError(
                     f"checkpoint {ckpt_path} has already finished: it is "
@@ -268,8 +274,12 @@ class Runner:
                 superstep, sim_state, est_state, gen, every)
             chunks.append(to_host(traces))
             done += every
-            save_checkpoint(ckpt_path, sim_state, est_state, gen, done,
-                            meta={"method": self.method, "seed": seed})
+            if sharded:
+                ckpt.save_sharded_checkpoint(ckpt_path, sim_state, self.est,
+                                             est_state, gen, done, meta)
+            else:
+                ckpt.save_checkpoint(ckpt_path, sim_state, est_state, gen,
+                                     done, meta)
         wall = time.perf_counter() - t0
         n_keep = n_supersteps - start
         traces = [np.concatenate([c[i] for c in chunks])[:n_keep]

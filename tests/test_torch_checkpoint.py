@@ -28,6 +28,13 @@ the CPU, on data/ring40.
   The keys are JAX's ``PRNGKey(seed)`` and ``PRNGKey(seed + 1)``.
 - ``run_resilient`` with a failure injected after the first chunk ends
   where the clean run ends (the pattern of tests/test_resilience.py).
+- A sharded run (2 gloo ranks, ``torch_parallel_workers.
+  checkpoint_world``): ``ShardedFastSlam1`` (ring40, P = 64, where each
+  rank draws its predict noise and resample dither from its own stream)
+  and ``ShardedEkfSlam`` on a 2-rank landmark mesh, cut at superstep 40
+  and resumed to 60, equal the unbroken runs bit for bit; each writes
+  one checkpoint for both ranks; a resume on a mesh of another shape,
+  or on none, raises ValueError naming both.
 """
 
 import json
@@ -431,3 +438,55 @@ def test_save_jax_checkpoint_refuses_a_deferred_state(tmp_path):
     sim_state, est_state, _, _ = runner._init(3)
     with pytest.raises(ValueError, match="DeferredState"):
         save_jax_checkpoint(str(tmp_path / "d"), sim_state, est_state, 0, 3)
+
+
+# ---------------------------------------------------------------------------
+# Sharded runs
+# ---------------------------------------------------------------------------
+
+RING40 = dict(ini="ring40.ini", mat="ring40.mat")
+SHARDED_FS1 = dict(world=RING40, P=64, seed=3, supersteps=60, chunk=20,
+                   cut=40)
+SHARDED_EKF = dict(SHARDED_FS1, world=dict(
+    RING40, config=dict(SWITCH_HEADING_KNOWN=1)))
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    import torch_parallel_workers as tw
+    return tw.run_world(tw.checkpoint_world, 2,
+                        tmp=str(tmp_path_factory.mktemp("sharded")),
+                        fs1=SHARDED_FS1, ekf=SHARDED_EKF)
+
+
+@pytest.mark.parametrize("kind", ["fs1", "ekf"])
+def test_sharded_resume_is_bit_exact(sharded_runs, kind):
+    """The resumed run's traces (from the cut on) and gathered final
+    state equal the unbroken run's, on both ranks."""
+    cut = SHARDED_FS1["cut"]
+    for world in sharded_runs:
+        full, part = world[kind]["unbroken"], world[kind]["resumed"]
+        for key, value in full["traces"].items():
+            np.testing.assert_array_equal(part["traces"][key], value[cut:],
+                                          err_msg=key)
+        assert part["state"].keys() == full["state"].keys()
+        for key, value in full["state"].items():
+            np.testing.assert_array_equal(part["state"][key], value,
+                                          err_msg=key)
+    fs = sharded_runs[0][kind]["unbroken"]["state"]
+    assert int(fs["n"]) > 0
+
+
+def test_a_sharded_run_writes_one_checkpoint(sharded_runs):
+    for world in sharded_runs:
+        for kind in ("fs1", "ekf"):
+            for run in world[kind].values():
+                assert run["files"] == ["run.json", "run.npz"]
+
+
+def test_sharded_resume_on_another_mesh_raises(sharded_runs):
+    for world in sharded_runs:
+        errors = world["errors"]
+        assert "(2,) mesh" in errors["single"]
+        assert "(1,) mesh" in errors["single"]
+        assert "(2,) mesh" in errors["none"] and "no mesh" in errors["none"]

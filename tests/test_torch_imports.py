@@ -100,13 +100,6 @@ TPU_MECHANICS = {
     "slam_tpu.ops.pallas.kernels": None,
     "slam_tpu.models.rbpf": {"TILE_SUB", "tile_shape"},  # [8, P/8] tiles
 }
-# Names of modules whose multi-device arms come in a later slice
-# (ROADMAP.md, Queue 1 item 2e): the landmark mesh axis of the EKF and BA
-# collectives and the EKF state's specs on it.
-NOT_YET = {
-    "slam_tpu.parallel.ekf": {"LM_AXIS", "state_specs"},
-    "slam_tpu.posegraph.distributed": {"LM_AXIS"},
-}
 JAX_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -138,14 +131,13 @@ def _source(module: str) -> Path:
 def test_port_module_has_the_jax_modules_names(module):
     """Each module of the JAX package has its counterpart in the port
     (``slam_tpu`` -> ``slam_tpu_torch``), which defines or imports every
-    public name the JAX module defines, less the written lists above;
+    public name the JAX module defines, less the written list above;
     an ``__init__``'s ``__all__`` holds the JAX one's."""
     import importlib
 
     port_name = "slam_tpu_torch" + module[len("slam_tpu"):]
     port = importlib.import_module(port_name)
-    want = (_defined(_source(module)) - TPU_MECHANICS.get(module, set())
-            - NOT_YET.get(module, set()))
+    want = _defined(_source(module)) - TPU_MECHANICS.get(module, set())
     missing = sorted(n for n in want if not hasattr(port, n))
     assert not missing, f"{port_name} lacks {missing}"
     if _source(module).name == "__init__.py":
@@ -159,6 +151,6 @@ def test_port_module_has_the_jax_modules_names(module):
 
 def test_the_written_lists_name_what_the_jax_package_has():
     """Every module and name left out still exists in the JAX package."""
-    for module, names in {**TPU_MECHANICS, **NOT_YET}.items():
+    for module, names in TPU_MECHANICS.items():
         assert module in JAX_MODULES, module
         assert names is None or names <= _defined(_source(module)), module

@@ -1,5 +1,20 @@
-"""The port's landmark-block EKF (slam_tpu_torch.parallel.ekf), one-card
-arm, on the CPU:
+"""The port's landmark-sharded EKF (slam_tpu_torch.parallel.ekf) on the
+CPU. On 4 gloo ranks (``torch_parallel_workers.ekf_world``) against the
+JAX package's ``ShardedEkfSlam`` on ``make_mesh(4, axis="l")`` over the
+forced CPU devices (tests/conftest.py):
+
+- one stream of data/ring40 inputs, association known and unknown, with
+  3 deferred columns, fewer than the 8 predicts per observe, so that
+  ``fold_now`` writes every shard's rows; compared through the gathered
+  ``dense_covariance``, x, n, the table and hk_n at the drive
+  tolerances of test_torch_ekf.py, after the stream and with three
+  heading terms pending;
+- capacity padding (tests/test_parallel_ekf.py's world: 10 landmarks on
+  4 ranks, 12 slots, as in JAX), run through Runner against the port's
+  dense EKF at that file's tolerance;
+- a mesh of one rank, bit for bit equal to no mesh.
+
+The one-card arm, in this process:
 
 - against the JAX package's ``ShardedEkfSlam`` on a one-device mesh,
   both driven by one stream of data/ring40 inputs (as in
@@ -11,11 +26,15 @@ arm, on the CPU:
   observe.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
+from slam_tpu.config import SlamConfig as JSlamConfig
 from slam_tpu.parallel import ekf as jpekf
 from slam_tpu.parallel.mesh import make_mesh
 from slam_tpu_torch.config import SlamConfig
@@ -31,6 +50,8 @@ from test_torch_ekf import (
     input_stream,
     ring40_configs,
 )
+
+import torch_parallel_workers as tw
 
 
 @pytest.fixture(autouse=True)
@@ -173,3 +194,124 @@ def test_state_carries_over_from_numpy():
     back = tpekf.sharded_state_from_numpy(arrays, device="cpu")
     assert back.hk_n == 2 and float(back.Pmm[0, 1]) == 0.5
     assert back.n.dtype == torch.int32 and back.x.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Several ranks
+# ---------------------------------------------------------------------------
+
+S = 4
+# ring40's vehicle sees its first landmark at superstep 37 and has
+# mapped 4 or more by superstep 120.
+MESH_SUPERSTEPS, N_DEFER, EXTRA = 120, 3, 3
+MESH_CASES = {"assoc-known": dict(SWITCH_ASSOCIATION_KNOWN=1,
+                                  SWITCH_HEADING_KNOWN=1),
+              "assoc-unknown": dict(SWITCH_ASSOCIATION_KNOWN=0,
+                                    SWITCH_HEADING_KNOWN=1)}
+# tests/test_parallel_ekf.py:test_sharded_ekf_capacity_padding's world.
+PADDING = dict(world=dict(synthetic=(10, 8, 30.0, 1),
+                          config=dict(SWITCH_HEADING_KNOWN=1,
+                                      max_landmarks=10)),
+               seed=2, ticks=20 * 8)
+
+
+def _jax_drive(jest, stream, n_defer, extra):
+    """``torch_parallel_workers._drive_ekf`` on the JAX estimator, its
+    state made with ``n_defer`` columns and placed on the mesh."""
+    state = jpekf.sharded_ekf_init(jest.capacity, jest.n_map,
+                                   n_defer=n_defer)
+    js = jax.device_put(state, jax.tree.map(
+        lambda s: NamedSharding(jest.mesh, s), jpekf.state_specs(jest.axis),
+        is_leaf=lambda x: isinstance(x, P)))
+    f32 = jnp.float32
+    poses = []
+    for ticks, z, ids, mask in stream:
+        for v, g, phi in ticks:
+            js = jest.predict(js, None, f32(v), f32(g), f32(phi))
+        js = jest.update(js, None, jnp.asarray(z), jnp.asarray(ids),
+                         jnp.asarray(mask))
+        poses.append(np.asarray(jest.pose(js)))
+    end = js
+    for v, g, phi in stream[-1][0][:extra]:
+        js = jest.predict(js, None, f32(v), f32(g), f32(phi))
+    return end, js, np.stack(poses)
+
+
+def _assert_gathered_match(js, got):
+    np.testing.assert_allclose(got["P"],
+                               np.asarray(jpekf.dense_covariance(js)),
+                               rtol=0, atol=DRIVE_P_ATOL)
+    np.testing.assert_allclose(got["x"], np.asarray(js.x), rtol=0,
+                               atol=DRIVE_X_ATOL)
+    assert got["n"] == int(js.n)
+    assert got["hk_n"] == int(js.hk_n)
+    np.testing.assert_array_equal(got["da_table"], np.asarray(js.da_table))
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return {name: input_stream(ring40_configs(**cfg)[1],
+                               ring40_configs()[2], MESH_SUPERSTEPS)
+            for name, cfg in MESH_CASES.items()}
+
+
+@pytest.fixture(scope="module")
+def ekf_world(streams):
+    drives = [dict(config=MESH_CASES[name], stream=streams[name],
+                   n_defer=N_DEFER, extra=EXTRA) for name in MESH_CASES]
+    single = dict(drives[1], stream=streams["assoc-unknown"][:60])
+    return tw.run_world(tw.ekf_world, S, drives=drives, padding=PADDING,
+                        single=single)
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_matches_jax_on_four_ranks(ekf_world, streams, case):
+    """Every pose within DRIVE_POSE_ATOL; the gathered states at the
+    drive tolerances, after the stream (hk_n 0) and with three heading
+    terms pending; every rank gathers the same."""
+    jcfg, _, slam_map = ring40_configs(**MESH_CASES[case])
+    jest = jpekf.ShardedEkfSlam(jcfg, slam_map.n_landmarks,
+                                make_mesh(S, axis="l"))
+    j_end, j_pending, j_poses = _jax_drive(jest, streams[case], N_DEFER,
+                                           EXTRA)
+    i = list(MESH_CASES).index(case)
+    for rank, world in enumerate(ekf_world):
+        got = world["drives"][i]
+        assert got["capacity"] == jest.capacity
+        assert got["rows"] == 2 * jest.capacity // S
+        err = float(np.abs(got["poses"] - j_poses).max())
+        assert err < DRIVE_POSE_ATOL, (rank, err)
+        assert got["end"]["n"] >= 4 and got["end"]["hk_n"] == 0
+        assert got["pending"]["hk_n"] == EXTRA
+        _assert_gathered_match(j_end, got["end"])
+        _assert_gathered_match(j_pending, got["pending"])
+
+
+def test_capacity_padding_on_four_ranks(ekf_world):
+    """10 landmarks on 4 ranks: 12 slots, as JAX pads them; the padded
+    slots never fill; the run agrees with the port's dense EKF on the
+    same world and seed (tests/test_parallel_ekf.py's 5e-3)."""
+    cfg, slam_map = tw.port_world(PADDING["world"])
+    jest = jpekf.ShardedEkfSlam(JSlamConfig(**PADDING["world"]["config"]),
+                                slam_map.n_landmarks, make_mesh(S, axis="l"))
+    dense = Runner(cfg, slam_map, "EKF1", device="cpu").run(
+        seed=PADDING["seed"], n_ticks=PADDING["ticks"])
+    for world in ekf_world:
+        got = world["padding"]
+        assert got["capacity"] == jest.capacity == 12
+        assert got["host_syncs"] == 0
+        assert 0 < got["n"] <= 10 and got["n"] == int(dense.final_state.n)
+        assert (got["x"][3 + 2 * 10:] == 0).all()
+        assert got["da_table"].max() < 10
+        np.testing.assert_allclose(got["est_pose"], dense.est_pose,
+                                   atol=5e-3)
+
+
+def test_one_rank_mesh_equals_no_mesh(ekf_world):
+    """On each rank, a mesh of that rank alone and no mesh: the same
+    states, bit for bit, with the fold arm and pending terms."""
+    for world in ekf_world:
+        on_mesh, alone = world["single"]
+        assert on_mesh["hk_n"] == alone["hk_n"] == EXTRA
+        for key, value in alone.items():
+            np.testing.assert_array_equal(on_mesh[key], value, err_msg=key)

@@ -70,6 +70,18 @@ def _entry(rank: int, job, n_ranks: int, tmp: str, inputs: dict) -> None:
 # Helpers
 # ---------------------------------------------------------------------------
 
+RING40 = dict(ini="ring40.ini", mat="ring40.mat")
+
+
+def _singles(axis: str) -> list:
+    """A mesh of each rank alone, made on every rank in the same order
+    (each mesh's groups are made by all ranks); this rank's is at its
+    index."""
+    from slam_tpu_torch.parallel.mesh import mesh_over
+    return [mesh_over([r], (1,), (axis,))
+            for r in range(dist.get_world_size())]
+
+
 def port_world(world: dict):
     """The port's (config, map) for a world spec: ``ini`` / ``mat`` file
     names under data/, or ``synthetic`` arguments of synthetic_map, and
@@ -263,4 +275,231 @@ def landmark_invariance_world(rank: int, *, world, P1, P2, seed,
         out[name] = dict(est_pose=run["est_pose"], ate=run["ate"],
                          syncs=run["syncs"], n=int(run["state"].n), lm=lm,
                          capacity=est.capacity)
+    return out
+
+
+def _drive_ekf(est, stream, n_defer: int, extra_predicts: int) -> tuple:
+    """Feed one input stream (test_torch_ekf.input_stream's) to an EKF
+    whose state has ``n_defer`` deferred columns; then
+    ``extra_predicts`` predicts more, so that heading terms are pending.
+    (state after the stream, state after the predicts, [pose] per
+    superstep)."""
+    from slam_tpu_torch.parallel.ekf import sharded_ekf_init
+
+    def t(a):
+        return torch.as_tensor(a)
+
+    st = sharded_ekf_init(est.capacity, est.n_map, n_defer=n_defer,
+                          device="cpu", rows=est.shard.rows)
+    poses = []
+    for ticks, z, ids, mask in stream:
+        for v, g, phi in ticks:
+            st = est.predict(st, None, t(v), t(g), t(phi))
+        st = est.update(st, None, t(z), t(ids), t(mask))
+        poses.append(est.pose(st).numpy())
+    end = st._replace(x=st.x.clone(), P00=st.P00.clone(),
+                      P0m=st.P0m.clone(), Pmm=st.Pmm.clone(),
+                      hk=st.hk.clone())
+    for v, g, phi in stream[-1][0][:extra_predicts]:
+        st = est.predict(st, None, t(v), t(g), t(phi))
+    return end, st, np.stack(poses)
+
+
+def _ekf_numpy(state, mesh) -> dict:
+    """The joint covariance (rows gathered, deferred terms folded), x,
+    n, the table and hk_n."""
+    from slam_tpu_torch.parallel.ekf import dense_covariance
+    return dict(P=dense_covariance(state, mesh).numpy(), x=state.x.numpy(),
+                n=int(state.n), da_table=state.da_table.numpy(),
+                hk_n=state.hk_n)
+
+
+def ekf_world(rank: int, *, drives, padding, single) -> dict:
+    """ShardedEkfSlam on ``make_mesh(S, axis="l")`` over every rank: each
+    of ``drives`` (config overrides of ring40, its input stream,
+    n_defer, the predicts after it) fed to the estimator; ``padding``
+    (a synthetic world whose capacity is no multiple of S) through
+    Runner; and ``single``, a drive on a mesh of this rank alone and on
+    no mesh, whose states must be equal bit for bit."""
+    from slam_tpu_torch.parallel.ekf import (
+        ShardedEkfSlam,
+        sharded_state_to_numpy,
+    )
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.runtime import Runner
+
+    mesh = make_mesh(axis="l")
+    out = {"drives": []}
+    for case in drives:
+        cfg, slam_map = port_world(dict(RING40, config=case["config"]))
+        est = ShardedEkfSlam(cfg, slam_map.n_landmarks, mesh)
+        end, pending, poses = _drive_ekf(est, case["stream"],
+                                         case["n_defer"], case["extra"])
+        out["drives"].append(dict(end=_ekf_numpy(end, mesh),
+                                  pending=_ekf_numpy(pending, mesh),
+                                  poses=poses, capacity=est.capacity,
+                                  rows=est.shard.rows))
+
+    cfg, slam_map = port_world(padding["world"])
+    est = ShardedEkfSlam(cfg, slam_map.n_landmarks, mesh)
+    result = Runner(cfg, slam_map, "EKF1", estimator=est).run(
+        seed=padding["seed"], n_ticks=padding["ticks"])
+    out["padding"] = dict(capacity=est.capacity, est_pose=result.est_pose,
+                          host_syncs=result.host_syncs,
+                          **_ekf_numpy(result.final_state, mesh))
+
+    cfg, slam_map = port_world(dict(RING40, config=single["config"]))
+    states = []
+    for m in (_singles("l")[rank], None):
+        est = ShardedEkfSlam(cfg, slam_map.n_landmarks, m, device="cpu")
+        _, st, poses = _drive_ekf(est, single["stream"], single["n_defer"],
+                                  single["extra"])
+        states.append(dict(sharded_state_to_numpy(st), poses=poses))
+    out["single"] = states
+    return out
+
+
+def ba_world(rank: int, *, cases) -> dict:
+    """``solve_ba_sharded`` of each case's problem (arrays, iters,
+    damping) on ``make_mesh(S, axis="l")`` over every rank, and on a
+    mesh of this rank alone and on no mesh, whose results must be equal
+    bit for bit."""
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.posegraph.ba import BAProblem
+    from slam_tpu_torch.posegraph.distributed import solve_ba_sharded
+
+    mesh = make_mesh(axis="l")
+    single = _singles("l")[rank]
+    out = []
+    for case in cases:
+        prob = BAProblem.from_numpy("cpu", **case["arrays"])
+        runs = {}
+        for name, m in (("mesh", mesh), ("single", single), ("none", None)):
+            p, l, info = solve_ba_sharded(prob, m, iters=case["iters"],
+                                          damping=case["damping"],
+                                          return_info=True)
+            runs[name] = dict(poses=p.numpy(), landmarks=l.numpy(), **info)
+        out.append(runs)
+    return out
+
+
+def config5_world(rank: int, *, run, choices, ba) -> dict:
+    """``run_config5`` on the (2, 2) mesh of the four ranks (``run``: its
+    keyword arguments); the filter it builds at (1, 1) inside the group
+    at each of ``choices``' particle counts (rank 0's mesh; the other
+    ranks get None); and the composed problem of a
+    LandmarkShardedFastSlam1 run on (2, 2) solved by ``solve_ba_sharded``
+    over the four ranks and by ``solve_ba`` on each."""
+    from slam_tpu_torch.parallel.landmarks import (
+        LandmarkShardedFastSlam1,
+        make_mesh_2d,
+    )
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.posegraph import problem_from_run
+    from slam_tpu_torch.posegraph.ba import solve_ba
+    from slam_tpu_torch.posegraph.distributed import solve_ba_sharded
+    from slam_tpu_torch.runtime import Runner
+    from slam_tpu_torch.runtime import config5
+
+    out = {"run": config5.run_config5(mesh_shape=(2, 2), **run)._asdict()}
+
+    built = []
+    for name in ("FastSlam1Deferred", "LandmarkShardedFastSlam1"):
+        cls = getattr(config5, name)
+
+        def spy(*args, _cls=cls, _name=name, **kw):
+            built.append(_name)
+            return _cls(*args, **kw)
+        setattr(config5, name, spy)
+    out["choices"] = []
+    for P in choices:
+        built.clear()
+        r = config5.run_config5(n_particles=P, mesh_shape=(1, 1),
+                                n_supersteps=2, ba_iters=1)
+        out["choices"].append(dict(built=list(built),
+                                   result=None if r is None else
+                                   r._asdict()))
+
+    cfg, slam_map = config5.config5_setup(10_000, capacity=ba["capacity"])
+    est = LandmarkShardedFastSlam1(cfg, slam_map.n_landmarks,
+                                   make_mesh_2d(2, 2), ba["P"])
+    result = Runner(cfg, slam_map, "FASTSLAM1", estimator=est,
+                    n_particles=ba["P"]).run(
+        seed=3, n_ticks=ba["supersteps"] * cfg.steps_per_observe)
+    prob = problem_from_run(result, cfg, slam_map, device="cpu")
+    p_sh, l_sh = solve_ba_sharded(prob, make_mesh(axis="l"),
+                                  iters=ba["iters"], damping=ba["damping"])
+    p_1, l_1 = solve_ba(prob, iters=ba["iters"], damping=ba["damping"])
+    out["ba"] = dict(L=prob.L, landmarks0_shape=tuple(prob.landmarks0.shape),
+                     poses=p_sh.numpy(), landmarks=l_sh.numpy(),
+                     poses_1=p_1.numpy(), landmarks_1=l_1.numpy())
+    return out
+
+
+def checkpoint_world(rank: int, *, tmp, fs1, ekf) -> dict:
+    """On a 1-D mesh of every rank, ShardedFastSlam1 (``fs1``: world, P,
+    seed, supersteps, chunk, cut) and ShardedEkfSlam (``ekf``): the run
+    unbroken through ``run_checkpointed``, then cut at ``cut`` and
+    resumed; the gathered final states, the traces, and the files each
+    checkpoint directory holds. Then a resume of the cut FS1 checkpoint
+    on a mesh of this rank alone, and on no mesh: their errors."""
+    from slam_tpu_torch.models import FastSlam1
+    from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
+    from slam_tpu_torch.parallel.filter import ShardedFastSlam1
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.runtime import Runner
+
+    def make(case, mesh):
+        cfg, slam_map = port_world(case["world"])
+        if case is fs1:
+            est = ShardedFastSlam1(cfg, slam_map.n_landmarks, mesh,
+                                   case["P"])
+            return Runner(cfg, slam_map, "FASTSLAM1", n_particles=case["P"],
+                          estimator=est)
+        est = ShardedEkfSlam(cfg, slam_map.n_landmarks, mesh)
+        return Runner(cfg, slam_map, "EKF1", estimator=est)
+
+    def traces(result):
+        return {k: getattr(result, k) for k in (
+            "true_pose", "est_pose", "active", "obs_z", "obs_ids")}
+
+    out = {}
+    for name, case in (("fs1", fs1), ("ekf", ekf)):
+        mesh = make_mesh(axis="p" if case is fs1 else "l")
+        period = port_world(case["world"])[0].steps_per_observe
+        runs = {}
+        for label, cut in (("unbroken", None), ("resumed", case["cut"])):
+            path = os.path.join(tmp, name, label, "run")
+            kw = dict(seed=case["seed"], every=case["chunk"],
+                      ckpt_path=path)
+            if cut is not None:
+                make(case, mesh).run_checkpointed(n_ticks=cut * period, **kw)
+            runner = make(case, mesh)
+            result = runner.run_checkpointed(
+                n_ticks=case["supersteps"] * period, resume=True, **kw)
+            runs[label] = dict(
+                traces=traces(result),
+                state=_gather(result.final_state, mesh,
+                              runner.est.state_specs())
+                if case is fs1 else _ekf_numpy(result.final_state, mesh),
+                files=sorted(os.listdir(os.path.dirname(path))))
+        out[name] = runs
+
+    errors = {}
+    path = os.path.join(tmp, "fs1", "resumed", "run")
+    cfg, slam_map = port_world(fs1["world"])
+    for label, est in (
+            ("single", ShardedFastSlam1(cfg, slam_map.n_landmarks,
+                                        _singles("p")[rank], fs1["P"])),
+            ("none", FastSlam1(cfg, slam_map.n_landmarks, device="cpu"))):
+        try:
+            Runner(cfg, slam_map, "FASTSLAM1", n_particles=fs1["P"],
+                   estimator=est).run_checkpointed(
+                seed=fs1["seed"], n_ticks=(fs1["supersteps"] + 20)
+                * cfg.steps_per_observe, every=fs1["chunk"],
+                ckpt_path=path, resume=True)
+            errors[label] = None
+        except ValueError as e:
+            errors[label] = str(e)
+    out["errors"] = errors
     return out
