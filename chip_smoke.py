@@ -9,8 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
 1. Device: a CUDA card is required; prints its name and power limit
    (nvidia-smi) and turns TF32 off.
 2. Build: compiles the CUDA kernels from slam_tpu_torch/csrc.
-3. Kernels against their plain PyTorch twins on the card, at the shapes
-   the main paths give them: K2 (K=15, L=200, P=100, by slot; and on
+3. Kernels against their plain PyTorch twins on the card: first the
+   bench's gate (slam_tpu_torch.ops.kernels.selfcheck.run: each kernel
+   once at the shapes the bench lines give it), then at the shapes the
+   main paths give them: K2 (K=15, L=200, P=100, by slot; and on
    edge cases: P=2^17 + 37, one landmark observed twice, new slots past
    the capacity, no matched observation, K=160, whose threads take
    several k each), bit-equal to K4 on the same inputs wherever the
@@ -199,6 +201,15 @@ Phases, in order; any failure raises and exits non-zero:
        run_checkpointed in chunks of 50, unbroken to superstep 200, then
        cut at 150 and resumed: one checkpoint, holding the rank's Philox
        stream, and the resumed run bit-equal (K4, G2).
+18. The bench entry (slam_tpu_torch.bench), through its functions with
+   no device named, at bench.py's full sizes: the primary line
+   fastslam1_webmap (FastSLAM 1, P = 100, 4000 ticks, seeds 3-5, then a
+   16000-tick run of seed 3: K2 once per superstep, G1, nothing else)
+   and the ba_10k line (no kernel; bench.py's two checks); the primary
+   JSON has bench.py's four keys, and each line lies within its limit
+   (the ATE below twice the JAX package's mean on the same world, ticks
+   and seeds; BA's error within 5 % of the JAX package's). Both lines are
+   printed.
 
 The last line is the JSON result; the two lines before it are the
 kernel table (JSON: per kernel its launches on the main paths and per
@@ -217,107 +228,36 @@ import sys
 import tempfile
 import time
 
-# RMS ATE in metres over seeds 3, 4, 5 of the JAX package's FastSLAM 1
-# with 100 particles and 2000 ticks on data/dense200 (CPU), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np;
-#     from slam_tpu.config import SlamConfig;
-#     from slam_tpu.maps import read_map_file;
-#     from slam_tpu.runtime import Runner, compute_metrics;
-#     m = read_map_file('data/dense200.mat');
-#     c = SlamConfig.from_ini('data/dense200.ini');
-#     a = [compute_metrics(Runner(c, m, 'FASTSLAM1', n_particles=100)
-#          .run(seed=s, n_ticks=2000)).ate_rmse for s in (3, 4, 5)];
-#     print(a, np.sqrt(np.mean(np.square(a))))"
-# -> [1.4713972806930542, 0.48239609599113464, 1.4304887056350708]
-JAX_ANCHOR_ATE_M = 1.2171022811043042
-# The same for config #5's world, the JAX package's eager FastSLAM 1 with
-# 1024 particles and 256 ticks (CPU), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np;
-#     from slam_tpu.runtime import Runner, compute_metrics;
-#     from slam_tpu.runtime.config5 import config5_setup;
-#     c, m = config5_setup(10_000, capacity=192, max_obs=96);
-#     a = [compute_metrics(Runner(c, m, 'FASTSLAM1', n_particles=1024)
-#          .run(seed=s, n_ticks=256)).ate_rmse for s in (3, 4, 5)];
-#     print(a, np.sqrt(np.mean(np.square(a))))"
-# -> [0.050281304866075516, 0.034129798412323, 0.05376854166388512]
-JAX_CONFIG5_ATE_M = 0.04684765675876786
-# The JAX package's FastSLAM 2 with 100 particles and 2000 ticks on
-# data/dense200 (heading known, as its ini says), seeds 3, 4, 5 (CPU):
-# the first command with 'FASTSLAM1' replaced by 'FASTSLAM2'
-# -> [0.12876757979393005, 0.18276497721672058, 0.1363617181777954]
-JAX_FS2_ANCHOR_ATE_M = 0.15119374401455354
-# The same on the world of the JAX package's fastslam2_1m bench line
-# (bench.py:load_workload without the reference data), FastSLAM 2 with
-# 1024 particles and 1024 ticks (CPU: the per-tick predict), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np;
-#     from slam_tpu.config import SlamConfig;
-#     from slam_tpu.maps import synthetic_map;
-#     from slam_tpu.runtime import Runner, compute_metrics;
-#     m = synthetic_map(35, 17, radius=100.0);
-#     c = SlamConfig(SWITCH_HEADING_KNOWN=0);
-#     a = [compute_metrics(Runner(c, m, 'FASTSLAM2', n_particles=1024)
-#          .run(seed=s, n_ticks=1024)).ate_rmse for s in (3, 4, 5)];
-#     print(a, np.sqrt(np.mean(np.square(a))))"
-# -> [0.5435689687728882, 0.4998002350330353, 0.2992551028728485]
-JAX_FS2_WEBMAP_ATE_M = 0.46000765042454733
-# The JAX package's EKF1 (the dense EkfSlam, its Runner's default
-# method), 2000 ticks, on the world of its ekf1_webmap bench line
-# (bench.py:475, with load_workload's fallback world), seeds 3-8 as that
-# line runs them (CPU), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np;
-#     from slam_tpu.config import SlamConfig;
-#     from slam_tpu.maps import synthetic_map;
-#     from slam_tpu.runtime import Runner, compute_metrics;
-#     m = synthetic_map(35, 17, radius=100.0);
-#     c = SlamConfig(SWITCH_HEADING_KNOWN=0);
-#     a = [compute_metrics(Runner(c, m, 'EKF1').run(seed=s, n_ticks=2000))
-#          .ate_rmse for s in (3, 4, 5, 6, 7, 8)];
-#     print(a, np.sqrt(np.mean(np.square(a))))"
-# -> [1.925543189048767, 2.8779795169830322, 0.4271391034126282,
-#     1.9853941202163696, 0.4592718183994293, 1.5500805377960205]
-JAX_EKF_WEBMAP_ATE_M = 1.76674845295672
-# EKF1 on data/dense200 (heading known), 2000 ticks, seeds 3, 4, 5
-# (CPU): the first command with Runner(c, m, 'EKF1') and no particles
-# -> [0.5465115308761597, 0.5760853886604309, 0.5243726372718811]
-JAX_EKF_DENSE200_ATE_M = 0.5493984258951212
-# The JAX package's ekf_10k line (bench.py:247-271): ShardedEkfSlam on a
-# one-device mesh, config5_setup(10_000, capacity=10_000, max_obs=96),
-# 640 ticks, seeds 3, 4, 5 (CPU), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax;
-#     from jax.sharding import Mesh;
-#     from slam_tpu.parallel.ekf import ShardedEkfSlam;
-#     from slam_tpu.runtime import Runner, compute_metrics;
-#     from slam_tpu.runtime.config5 import config5_setup;
-#     c, m = config5_setup(10_000, capacity=10_000, max_obs=96);
-#     mesh = Mesh(np.array(jax.devices()[:1]), ('lm',));
-#     a = [compute_metrics(Runner(c, m, 'EKF1', estimator=ShardedEkfSlam(
-#          c, m.n_landmarks, mesh)).run(seed=s, n_ticks=640)).ate_rmse
-#          for s in (3, 4, 5)];
-#     print(a, np.sqrt(np.mean(np.square(a))))"
-# (run on the 8 CPU cores of the H100's host machine, 450 s)
-# -> [0.24316486716270447, 0.23860998451709747, 0.20781908929347992]
-JAX_EKF_10K_ATE_M = 0.2304001238485464
-# The JAX package's composed config #5 on the CPU, as bench_config5 runs
-# it but at 1024 particles (bench.py:403-430): RMS over seeds 3, 4, 5 of
-# run_config5(n_particles=1024, capacity=192, n_supersteps=32,
-# seed=s).ate_refined (JAX_PLATFORMS=cpu, the 8 CPU cores of the H100's
-# host machine; its ate_filter RMS: 0.045890827499616364)
-# -> [0.021920856088399887, 0.10794076323509216, 0.050334397703409195]
-JAX_CONFIG5_REFINED_ATE_M = 0.06991729373954994
-# The JAX package's ba_10k line (bench.py:347-400) on the CPU: the mean
-# position error of solve_ba_device(prob, iters=30) on
-# make_ba_problem(256, 10_000), measured by:
-#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax.numpy as jnp;
-#     from bench import make_ba_problem;
-#     from slam_tpu.posegraph import solve_ba_device;
-#     prob, poses, poses0, lms = make_ba_problem(256, 10_000);
-#     p, _ = solve_ba_device(prob, iters=30);
-#     print(float(jnp.linalg.norm(p[:, :2] - poses[:, :2], axis=1).mean()))"
-# (the host machine's CPU; 35 trials, 18 accepted; dead-reckoned error
-# 29.436847686767578 m, the MAP floor 1.8217651844024658 m)
-JAX_BA10K_ERR_M = 1.7418155670166016
-ATE_MARGIN = 2.0
-BA_ERR_MARGIN = 0.05
+from slam_tpu_torch.device import card_line
+from slam_tpu_torch.ops.kernels import selfcheck
+from slam_tpu_torch.ops.kernels.selfcheck import (
+    K5_TILE,
+    TOL,
+    Q,
+    R,
+    check,
+    compare_refine,
+    gather_inputs,
+    gathered_planes,
+    k5_bounds,
+    max_abs_err,
+    predict_inputs,
+    refine_inputs,
+    update_inputs,
+)
+from slam_tpu_torch.runtime.anchors import (
+    ATE_MARGIN,
+    BA_ERR_MARGIN,
+    JAX_ANCHOR_ATE_M,
+    JAX_BA10K_ERR_M,
+    JAX_CONFIG5_ATE_M,
+    JAX_CONFIG5_REFINED_ATE_M,
+    JAX_EKF_10K_ATE_M,
+    JAX_EKF_DENSE200_ATE_M,
+    JAX_EKF_WEBMAP_ATE_M,
+    JAX_FS2_ANCHOR_ATE_M,
+    JAX_FS2_WEBMAP_ATE_M,
+)
 
 MAP, INI = "data/dense200.mat", "data/dense200.ini"
 TICKS, SEEDS = 2000, (3, 4, 5)
@@ -344,16 +284,11 @@ T_PREDICT = 8
 # line's 8: the update then refines on matched observations and the
 # resample fires.
 FS2_P, FS2_TICKS = 2 ** 20, 1024
-TOL = dict(rtol=1e-5, atol=1e-5)
-TOL_REFINE_XV = dict(rtol=1e-4, atol=1e-5)
-TOL_REFINE_PV = dict(rtol=1e-3, atol=1e-6)
 TOL_PATHS = dict(rtol=1e-4, atol=1e-4)
-R = [[0.01, 0.0], [0.0, 0.0003]]
-Q = [[0.09, 0.0], [0.0, 0.0025]]
-# K5's tiles, as in csrc/resample_update.cu (kTile, kStageWidth): a tile
-# of output columns is staged through shared memory when its ancestor
-# run, widened to 16-byte edges, fits the staging width.
-K5_TILE, K5_STAGE_WIDTH = 512, 768
+# K5's staging width, as in csrc/resample_update.cu (kStageWidth): a
+# tile of output columns (K5_TILE) is staged through shared memory when
+# its ancestor run, widened to 16-byte edges, fits it.
+K5_STAGE_WIDTH = 768
 K5_EDGE_P = 2 ** 16
 
 # The bound of a kernel: the larger of its bytes over the card's memory
@@ -419,20 +354,6 @@ KERNELS = {
 }
 
 
-def check(cond, msg: str) -> None:
-    """Fail the smoke test; unlike ``assert``, kept under ``python -O``."""
-    if not cond:
-        raise AssertionError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean milliseconds per call of ``fn`` on the card, after a warm-up,
     by CUDA events around ``iters`` back-to-back calls."""
@@ -483,11 +404,6 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_abs_err(got, want) -> float:
-    return max(float((g.double() - w.double()).abs().max())
-               for g, w in zip(got, want))
-
-
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel against its twin at main-path shapes."""
     import numpy as np
@@ -495,12 +411,14 @@ def check_kernels(dev) -> dict:
 
     from slam_tpu_torch.ops.kernels import kernels as kk
 
+    t0 = time.perf_counter()
+    gate = selfcheck.run(dev)
+    print(f"kernel gate (selfcheck.run, the bench lines' shapes): "
+          f"{json.dumps(gate)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     rng = np.random.default_rng(0)
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
-
-    def t(a, dtype=torch.float32):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
     results["K2"] = check_k2(dev, rng, g)
 
@@ -542,30 +460,16 @@ def check_gathers(dev, g, fs2_L) -> dict:
     offspring counts for G2, on the rows stacked beforehand)."""
     import torch
 
-    from slam_tpu_torch.ops import resampling as rs
-    from slam_tpu_torch.ops.kernels import gather as kg
-
-    f32 = dict(dtype=torch.float32, device=dev)
     results = {}
     for name, P, L in (("G1", P_SMALL, CAPACITY), ("G2", P_LARGE, CAPACITY),
                        ("G2 fs2-1m", FS2_P, fs2_L)):
-        arrays = [torch.randn((c, P), generator=g, **f32) * 37
-                  for c in (10, 2 * L, 3 * L)]
+        arrays, sel, kernel, plain = gather_inputs(dev, g, name[:2], P, L)
         stacked = torch.cat(arrays)
         rows = stacked.shape[0]
-        logw = torch.randn(P, generator=g, **f32) * 2.0
-        U = rs.uniform_from_generator(P, g, dev)
         if name == "G1":
-            sel = rs.stratified_indices(logw, U)
-            kernel, plain = kg.sorted_gather_multi, \
-                kg.sorted_gather_multi_plain
             distinct = int(torch.unique(sel).numel())
             library = lambda: torch.index_select(stacked, 1, sel)  # noqa
         else:
-            sel = rs.offspring_bounds(
-                rs.cumulative_weights(rs.normalize_log_weights(logw)), P, U)
-            kernel, plain = kg.bounds_gather_multi, \
-                kg.bounds_gather_multi_plain
             counts = torch.diff(sel, prepend=sel.new_zeros(1)).long()
             distinct = int((counts > 0).sum())
             library = lambda: torch.repeat_interleave(  # noqa
@@ -585,68 +489,6 @@ def check_gathers(dev, g, fs2_L) -> dict:
                       library))
         del got, want, arrays, stacked
     return results
-
-
-def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
-                  twice=False, past_capacity=False):
-    """A particle state and an observation batch for K2, K4 and K5 at K
-    observations, L slots, P particles: ``live`` landmarks mapped,
-    ``n_match`` of them observed, ``n_new`` new ones, the rest masked
-    observations of live landmarks. ``twice``: the first landmark is
-    observed twice, so two k match one slot. ``past_capacity``: the new
-    observations whose slots lie past the L slots stay flagged in ``ok``,
-    for the kernel to drop. Returns (state, (z, slot, matched, slot_new,
-    ok))."""
-    import numpy as np
-    import torch
-
-    from slam_tpu_torch.models.particles import init_particles
-    from slam_tpu_torch.models.rbpf import associate_known, new_slots
-
-    check(n_match + n_new <= K and live <= L and live + n_new <= n_map
-          and (past_capacity or live + n_new <= L),
-          "update input: inconsistent sizes")
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    def t(a, dtype=torch.float32):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    state = init_particles(P, L, n_map, device=dev)
-    truth = rng.uniform(-25.0, 25.0, size=(n_map, 2))
-    table = np.full(n_map, -1, np.int32)
-    table[:live] = rng.permutation(live)
-    lm = torch.zeros((2, L, P), **f32)
-    lm[:, table[:live]] = t(truth[:live].T[:, :, None])
-    lm += 0.2 * torch.randn((2, L, P), generator=g, **f32)
-    state.lm.copy_(lm)
-    del lm
-    state.lm_P[0, :live] = 0.05
-    state.lm_P[1, :live] = 0.01
-    state.lm_P[2, :live] = 0.04
-    state.xv.copy_(0.1 * torch.randn((3, P), generator=g, **f32))
-    state = state._replace(n=t(live, torch.int32),
-                           da_table=t(table, torch.int32))
-    seen = rng.choice(live, n_match, replace=False)
-    if twice:
-        seen[1] = seen[0]
-    ids_np = np.concatenate([seen, np.arange(live, live + n_new),
-                             rng.choice(live, K - n_match - n_new)]
-                            ).astype(np.int32)
-    d = truth[ids_np]
-    z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
-                           np.arctan2(d[:, 1], d[:, 0])]))
-    ids = t(ids_np, torch.int32)
-    zmask = t(np.arange(K) < n_match + n_new, torch.bool)
-    assoc, is_new = associate_known(state, ids, zmask)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).to(torch.int32)
-    slot_new, ok = new_slots(state, is_new)
-    if past_capacity:
-        ok = is_new
-    check(int(matched.sum()) == n_match and int(ok.sum()) == n_new,
-          f"update input: expected {n_match} matched and {n_new} new "
-          "observations")
-    return state, (z, slot, matched, slot_new, ok)
 
 
 def check_k2(dev, rng, g) -> dict:
@@ -792,35 +634,6 @@ def check_k4(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new) -> dict:
                            kk.fused_update_map(P))),
                 **measure(lambda: kk.fused_update(*b_k),
                           lambda: kk.fused_update_plain(*b_p)))
-
-
-def k5_bounds(dev, rng, g, P, kind):
-    """Offspring bounds S [P] for a K5 check: a fired stratified
-    resample of random weights, or a chosen ancestor vector."""
-    import numpy as np
-    import torch
-
-    from slam_tpu_torch.ops import resampling as rs
-
-    if kind == "fired":
-        logw = torch.randn(P, generator=g, device=dev)
-        return rs.offspring_bounds(
-            rs.cumulative_weights(rs.normalize_log_weights(logw)), P,
-            rs.uniform_from_generator(P, g, dev))
-    anc = np.arange(P)
-    tile = K5_TILE
-    if kind == "one ancestor":
-        anc[:] = P // 3 + 1
-    elif kind == "identity but one tile":
-        j0 = 5 * tile
-        anc[j0:j0 + tile] = np.sort(rng.integers(j0, j0 + tile, tile))
-    elif kind == "wide run":     # tile 0 from every 8th of 8 tiles' columns
-        anc[:tile] = 8 * np.arange(tile)
-        anc[tile:] = np.sort(rng.integers(8 * tile, P, P - tile))
-    else:
-        raise ValueError(kind)
-    S = np.searchsorted(anc, np.arange(P), side="right")
-    return torch.tensor(S, dtype=torch.int32, device=dev)
 
 
 def k5_layout(S) -> dict:
@@ -969,24 +782,6 @@ def check_k5(dev, rng, g) -> dict:
               f"{'' if twice else ', within TOL of the twin'}; "
               f"staged tiles {lay['staged_tiles']:.4f}", flush=True)
     return dict(out, max_abs_err=err)
-
-
-def predict_inputs(dev, g, P, T, fs2: bool):
-    """Poses xv [3, P] (and, ``fs2``, pose covariances Pv [6, P]),
-    controls [T, 2] and a key for K6 or K6b."""
-    import torch
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    state = [torch.randn((3, P), generator=g, **f32)]
-    if fs2:
-        Pv = torch.zeros((6, P), **f32)
-        Pv[0], Pv[3], Pv[5] = 0.02, 0.02, 0.01
-        state.append(Pv)
-    ctl = torch.stack([3.0 + 0.3 * torch.randn(T, generator=g, **f32),
-                       0.1 * torch.randn(T, generator=g, **f32)], dim=1)
-    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
-                         generator=g, device=dev)
-    return state, ctl, seed
 
 
 def check_predict(dev, g, name, P, fs2: bool, timed_noise: bool) -> dict:
@@ -1175,69 +970,19 @@ def check_fast_math(dev) -> dict:
     return dict(sweep, seconds=seconds)
 
 
-def gathered_planes(dev, rng, g, P, K):
-    """xv [3, P] near the origin and landmark planes [K, P] gathered for
-    K observations at 3 to 25 m, with their (range, bearing) z [K, 2]."""
-    import numpy as np
-    import torch
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    xv = torch.randn((3, P), generator=g, **f32) * torch.tensor(
-        [[0.3], [0.3], [0.05]], **f32)
-    rngk = rng.uniform(3.0, 25.0, K)
-    brg = rng.uniform(-1.4, 1.4, K)
-    lmx = (torch.tensor(rngk * np.cos(brg), **f32)[:, None]
-           + 0.3 * torch.randn((K, P), generator=g, **f32))
-    lmy = (torch.tensor(rngk * np.sin(brg), **f32)[:, None]
-           + 0.3 * torch.randn((K, P), generator=g, **f32))
-    A = 0.2 * torch.randn((K, P), generator=g, **f32)
-    planes = [lmx, lmy, A * A + 0.02, 0.3 * A * A, A * A + 0.03]
-    z = torch.tensor(np.column_stack([rngk + rng.normal(size=K) * 0.1,
-                                      brg + rng.normal(size=K) * 0.017]),
-                     **f32)
-    return xv, planes, z
-
-
-def compare_poses(got, want, tol) -> float:
-    """assert_close on x, y and on the wrapped heading difference; the
-    largest absolute difference."""
-    import torch
-
-    from slam_tpu_torch.geometry import wrap_angle
-    torch.testing.assert_close(got[:2], want[:2], **tol)
-    dth = wrap_angle(got[2] - want[2])
-    torch.testing.assert_close(dth, torch.zeros_like(dth), **tol)
-    return max_abs_err([got[:2], dth], [want[:2], torch.zeros_like(dth)])
-
-
 def check_k3(dev, rng, g) -> dict:
-    """K3 at K = 15, P = 2^20: every fifth observation unmatched, its
-    planes those of a landmark at the particle's own position (zero
-    distance), which the kernel must pass by untouched; Pv at the scale
-    a superstep of predict accumulates."""
+    """K3 at K = 15, P = 2^20 on selfcheck.refine_inputs: every fifth
+    observation unmatched; at the golden tolerances."""
     import torch
 
     from slam_tpu_torch.ops.kernels import kernels as kk
 
     P, K = FS2_P, K_OBS
-    xv, planes, z = gathered_planes(dev, rng, g, P, K)
-    matched = torch.arange(K, device=dev) % 5 != 4
-    planes[0][~matched] = xv[0]
-    planes[1][~matched] = xv[1]
-    B = 0.01 * torch.randn((3, 3, P), generator=g, device=dev)
-    M = torch.einsum("ikp,jkp->ijp", B, B) + 1e-5 * torch.eye(
-        3, device=dev)[:, :, None]
-    Pv = torch.stack([M[0, 0], M[0, 1], M[0, 2], M[1, 1], M[1, 2],
-                      M[2, 2]]).contiguous()
-    args = (xv, Pv, *planes, z, matched, R)
+    args = refine_inputs(dev, rng, g, P, K)
     got, want = kk.fs2_refine(*args), kk.fs2_refine_plain(*args)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
-          "K3: non-finite output")
-    err = compare_poses(got[0], want[0], TOL_REFINE_XV)
-    torch.testing.assert_close(got[1], want[1], **TOL_REFINE_PV)
-    err = max(err, max_abs_err([got[1]], [want[1]]))
-    n_match = int(matched.sum())
+    err = compare_refine(got, want)
+    n_match = int(args[-2].sum())
     # Reads the pose, Pv and the matched k's planes; writes pose and Pv.
     return dict(max_abs_err=err, shape=f"K={K} P={P}",
                 bytes=4 * P * (9 + 5 * n_match + 9) + 9 * K,
@@ -2862,6 +2607,58 @@ def check_mesh_paths(dev, ba10k: dict) -> dict:
                       "ckpt-sharded": ckpt}, ba=ba)
 
 
+def check_bench_entry(dev) -> dict:
+    """Phase 18: slam_tpu_torch.bench's primary line (fastslam1_webmap:
+    FastSLAM 1, P = 100, 4000 ticks, seeds 3-5 and one 16000-tick run)
+    and its ba_10k line, at bench.py's full sizes, through the module's
+    functions with no device named. The primary JSON has bench.py's four
+    keys; the line's ATE lies below its limit (twice the JAX package's
+    mean on the same world, ticks and seeds) and ba_10k's error within
+    5 % of the JAX package's (bench.py's two checks raise inside the
+    line); K2 launches once per superstep and G1 at least once, nothing
+    else. {"bench-fastslam1_webmap": slice}."""
+    import torch
+
+    from slam_tpu_torch import bench
+    from slam_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    lines = bench.bench_run("FASTSLAM1", 100)
+    counts = kernels.launch_counts()
+    supersteps = (len(SEEDS) * 4000 + 4 * 4000) // T_PREDICT
+    primary = bench.primary_json(lines)
+    check(list(primary) == ["metric", "value", "unit", "vs_baseline"]
+          and primary["metric"] == bench.PRIMARY_METRIC
+          and primary["unit"] == "steps/s" and primary["vs_baseline"] is None
+          and primary["value"] > 0,
+          f"bench: the primary JSON {primary}")
+    check(counts["K2"] == supersteps and counts["G1"] > 0
+          and not any(n for k, n in counts.items() if k not in ("K2", "G1")),
+          f"bench fastslam1_webmap: launches {counts} in {supersteps} "
+          "supersteps")
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    lines.update(bench.bench_ba_10k())
+    check(not any(kernels.launch_counts().values()),
+          f"bench ba_10k: kernels launched {kernels.launch_counts()}")
+    check(lines["fastslam1_webmap"]["ate_limit"] is not None
+          and lines["ba_10k"]["err_vs_jax_limit"] is not None,
+          "bench: a line at bench.py's sizes has no limit")
+    warnings = bench.accuracy_warnings(lines)
+    check(not warnings, f"bench: over the limits {warnings}")
+    print(f"bench primary JSON: {json.dumps(primary)}", flush=True)
+    for name, line in lines.items():
+        print(f"bench line {name}: {json.dumps(line)}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"bench entry phase: {seconds:.1f} s", flush=True)
+    return {"bench-fastslam1_webmap": dict(
+        launches=counts,
+        launches_per_superstep={k: n / supersteps for k, n in counts.items()
+                                if n},
+        primary=primary, lines=lines, seconds=seconds)}
+
+
 def main() -> int:
     import torch
 
@@ -2991,9 +2788,11 @@ def main() -> int:
         sharded = check_sharded(dev)
         torch.cuda.empty_cache()
         meshed = check_mesh_paths(dev, ba10k)
+    torch.cuda.empty_cache()
+    bench_entry = check_bench_entry(dev)
 
     # Main-path launches of each kernel: the sum of the counts of the
-    # runs of phases 4, 12-14, 16 and 17. K1 lies on no path (the JAX
+    # runs of phases 4, 12-14, 16, 17 and 18. K1 lies on no path (the JAX
     # package calls it only from tests); every slice checks that it
     # stayed at 0. The error is the largest over a kernel's checks (K4 at
     # three shapes and its cross-shard arm, K2 and its arm, G2 at two);
@@ -3015,6 +2814,8 @@ def main() -> int:
     # Phase 16: the sharded filters; phase 17: the mesh paths.
     slices.update(sharded["runs"])
     slices.update(meshed["runs"])
+    # Phase 18: the bench entry's primary line (ba_10k launches none).
+    slices.update(bench_entry)
     ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None,
                        "ekf-10k-mesh": None, "ba-10k-mesh": None})
     launches = {k: sum(s["launches"][k] for s in slices.values())

@@ -17,6 +17,10 @@ module names so each port can be found beside its counterpart:
   DataGatherer-format metrics.
 - ``slam_tpu_torch.device`` — ``default_device``: the entry points run
   on the card unless the caller names a device, and raise without one.
+- ``slam_tpu_torch.bench`` — the repository's bench.py lines on the
+  card, after every kernel is held against its twin
+  (``ops.kernels.selfcheck``); ``slam_tpu_torch.quickstart`` — the
+  counterpart of examples/quickstart.py.
 
 Only ``torch`` and ``numpy`` are imported; never ``jax``, and nothing of
 the ``slam_tpu`` package.

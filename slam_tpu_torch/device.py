@@ -9,6 +9,8 @@ there.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -27,3 +29,15 @@ def default_device(device=None) -> torch.device:
             "GPU, or is a CPU-only build). Pass device=\"cpu\" "
             "(-device cpu on the command line) to run on the CPU.")
     return torch.device("cuda")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them for
+    the first card; every time this package reports goes beside it (a
+    card set below its full power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

@@ -1,0 +1,402 @@
+"""The kernel gate: each of the nine CUDA kernels against its plain
+PyTorch twin, once, on seeded inputs at the shapes the bench lines give
+it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
+
+    from slam_tpu_torch.ops.kernels import selfcheck
+    selfcheck.run("cuda")      # raises on the first mismatch
+
+What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
+
+- G1, G2, K6 and K6b bit-equal to their twins (the gathers copy; the
+  predicts keep the twins' operation order);
+- K5 bit-equal to G2's gather followed by K4 (the same operation order),
+  and within TOL of its twin;
+- K3 at the JAX package's golden tolerances of the refinement (xv rtol
+  1e-4, atol 1e-5; Pv rtol 1e-3, atol 1e-6): its chain over K
+  observations compounds rounding;
+- K1, K2 and K4 within TOL, rtol 1e-5 and atol 1e-5: they sum over k in
+  another order than the twins, and the device's libm rounds sin, cos
+  and log differently from torch's;
+- headings (and K1's bearings) compared wrapped: one ulp at +-pi flips a
+  wrapped value by 2 pi.
+
+The input builders here (``update_inputs``, ``predict_inputs``,
+``gathered_planes``, ``k5_bounds``) are also the ones ``chip_smoke.py``
+uses for its timed checks at larger shapes.
+
+On a CPU tensor every wrapper runs its twin, so the gate would compare
+each twin with itself: ``run`` refuses a CPU device. ``check_all`` takes
+the shapes as arguments; the CPU tests drive it at small ones to hold
+the gate's own code.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from slam_tpu_torch.geometry import wrap_angle
+from slam_tpu_torch.models.particles import init_particles
+from slam_tpu_torch.models.rbpf import associate_known, new_slots
+from slam_tpu_torch.ops import planes as pk
+from slam_tpu_torch.ops import resampling as rs
+from slam_tpu_torch.ops.kernels import gather as kg
+from slam_tpu_torch.ops.kernels import kernels as kk
+from slam_tpu_torch.ops.kernels import launch_counts
+from slam_tpu_torch.ops.kernels import predict as kp
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOL_REFINE_XV = dict(rtol=1e-4, atol=1e-5)
+TOL_REFINE_PV = dict(rtol=1e-3, atol=1e-6)
+R = [[0.01, 0.0], [0.0, 0.0003]]
+Q = [[0.09, 0.0], [0.0, 0.0025]]
+# K5's tile of output columns, as in csrc/resample_update.cu (kTile).
+K5_TILE = 512
+T_PREDICT = 8
+
+# The shapes the bench lines give the kernels: the fallback world's 9
+# observations and 40 slots (35 landmarks) at P = 100 (fastslam1_webmap,
+# fastslam2_webmap: K2, G1) and at P = 2^20 (fastslam1_1m, fastslam2_1m:
+# K4, K5, K6, K6b, K3, G2), and config #5's 96 observations and 192
+# slots at P = 2^20 (config5_composed: K4, K5). K1 lies on no path; it
+# is checked at the webmap's K.
+WEBMAP = dict(K=9, L=40, n_map=35, live=20, n_match=5, n_new=3)
+CONFIG5 = dict(K=96, L=192, n_map=400, live=150, n_match=70, n_new=20)
+P_SMALL, P_LARGE, P_K1 = 100, 2 ** 20, 2 ** 17
+
+
+def check(cond, msg: str) -> None:
+    """Fail; unlike ``assert``, kept under ``python -O``."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def max_abs_err(got, want) -> float:
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want))
+
+
+def compare_poses(got, want, tol) -> float:
+    """assert_close on x, y and on the wrapped heading difference; the
+    largest absolute difference."""
+    torch.testing.assert_close(got[:2], want[:2], **tol)
+    dth = wrap_angle(got[2] - want[2])
+    torch.testing.assert_close(dth, torch.zeros_like(dth), **tol)
+    return max_abs_err([got[:2], dth], [want[:2], torch.zeros_like(dth)])
+
+
+def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
+                  twice=False, past_capacity=False):
+    """A particle state and an observation batch for K2, K4 and K5 at K
+    observations, L slots, P particles: ``live`` landmarks mapped,
+    ``n_match`` of them observed, ``n_new`` new ones, the rest masked
+    observations of live landmarks. ``twice``: the first landmark is
+    observed twice, so two k match one slot. ``past_capacity``: the new
+    observations whose slots lie past the L slots stay flagged in ``ok``,
+    for the kernel to drop. Returns (state, (z, slot, matched, slot_new,
+    ok))."""
+    check(n_match + n_new <= K and live <= L and live + n_new <= n_map
+          and (past_capacity or live + n_new <= L),
+          "update input: inconsistent sizes")
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    state = init_particles(P, L, n_map, device=dev)
+    truth = rng.uniform(-25.0, 25.0, size=(n_map, 2))
+    table = np.full(n_map, -1, np.int32)
+    table[:live] = rng.permutation(live)
+    lm = torch.zeros((2, L, P), **f32)
+    lm[:, table[:live]] = t(truth[:live].T[:, :, None])
+    lm += 0.2 * torch.randn((2, L, P), generator=g, **f32)
+    state.lm.copy_(lm)
+    del lm
+    state.lm_P[0, :live] = 0.05
+    state.lm_P[1, :live] = 0.01
+    state.lm_P[2, :live] = 0.04
+    state.xv.copy_(0.1 * torch.randn((3, P), generator=g, **f32))
+    state = state._replace(n=t(live, torch.int32),
+                           da_table=t(table, torch.int32))
+    seen = rng.choice(live, n_match, replace=False)
+    if twice:
+        seen[1] = seen[0]
+    ids_np = np.concatenate([seen, np.arange(live, live + n_new),
+                             rng.choice(live, K - n_match - n_new)]
+                            ).astype(np.int32)
+    d = truth[ids_np]
+    z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
+                           np.arctan2(d[:, 1], d[:, 0])]))
+    ids = t(ids_np, torch.int32)
+    zmask = t(np.arange(K) < n_match + n_new, torch.bool)
+    assoc, is_new = associate_known(state, ids, zmask)
+    matched = assoc >= 0
+    slot = torch.where(matched, assoc, 0).to(torch.int32)
+    slot_new, ok = new_slots(state, is_new)
+    if past_capacity:
+        ok = is_new
+    check(int(matched.sum()) == n_match and int(ok.sum()) == n_new,
+          f"update input: expected {n_match} matched and {n_new} new "
+          "observations")
+    return state, (z, slot, matched, slot_new, ok)
+
+
+def k5_bounds(dev, rng, g, P, kind):
+    """Offspring bounds S [P] for a K5 check: a fired stratified
+    resample of random weights, or a chosen ancestor vector."""
+    if kind == "fired":
+        logw = torch.randn(P, generator=g, device=dev)
+        return rs.offspring_bounds(
+            rs.cumulative_weights(rs.normalize_log_weights(logw)), P,
+            rs.uniform_from_generator(P, g, dev))
+    anc = np.arange(P)
+    tile = K5_TILE
+    if kind == "one ancestor":
+        anc[:] = P // 3 + 1
+    elif kind == "identity but one tile":
+        j0 = 5 * tile
+        anc[j0:j0 + tile] = np.sort(rng.integers(j0, j0 + tile, tile))
+    elif kind == "wide run":     # tile 0 from every 8th of 8 tiles' columns
+        anc[:tile] = 8 * np.arange(tile)
+        anc[tile:] = np.sort(rng.integers(8 * tile, P, P - tile))
+    else:
+        raise ValueError(kind)
+    S = np.searchsorted(anc, np.arange(P), side="right")
+    return torch.tensor(S, dtype=torch.int32, device=dev)
+
+
+def predict_inputs(dev, g, P, T, fs2: bool):
+    """Poses xv [3, P] (and, ``fs2``, pose covariances Pv [6, P]),
+    controls [T, 2] and a key for K6 or K6b."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = [torch.randn((3, P), generator=g, **f32)]
+    if fs2:
+        Pv = torch.zeros((6, P), **f32)
+        Pv[0], Pv[3], Pv[5] = 0.02, 0.02, 0.01
+        state.append(Pv)
+    ctl = torch.stack([3.0 + 0.3 * torch.randn(T, generator=g, **f32),
+                       0.1 * torch.randn(T, generator=g, **f32)], dim=1)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                         generator=g, device=dev)
+    return state, ctl, seed
+
+
+def gathered_planes(dev, rng, g, P, K):
+    """xv [3, P] near the origin and landmark planes [K, P] gathered for
+    K observations at 3 to 25 m, with their (range, bearing) z [K, 2]."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    xv = torch.randn((3, P), generator=g, **f32) * torch.tensor(
+        [[0.3], [0.3], [0.05]], **f32)
+    rngk = rng.uniform(3.0, 25.0, K)
+    brg = rng.uniform(-1.4, 1.4, K)
+    lmx = (torch.tensor(rngk * np.cos(brg), **f32)[:, None]
+           + 0.3 * torch.randn((K, P), generator=g, **f32))
+    lmy = (torch.tensor(rngk * np.sin(brg), **f32)[:, None]
+           + 0.3 * torch.randn((K, P), generator=g, **f32))
+    A = 0.2 * torch.randn((K, P), generator=g, **f32)
+    planes = [lmx, lmy, A * A + 0.02, 0.3 * A * A, A * A + 0.03]
+    z = torch.tensor(np.column_stack([rngk + rng.normal(size=K) * 0.1,
+                                      brg + rng.normal(size=K) * 0.017]),
+                     **f32)
+    return xv, planes, z
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _bit_equal(name, got, want) -> float:
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name}: not bit-equal to its twin (max abs err "
+          f"{max_abs_err(got, want):.3g})")
+    return 0.0
+
+
+def _close(name, got, want, tol) -> float:
+    check(all(bool(torch.isfinite(a).all()) for a in got),
+          f"{name}: non-finite output")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{name}: {m}")
+    return max_abs_err(got, want)
+
+
+def _update(dev, rng, g, name, P, world) -> dict:
+    """K2 (``name`` "K2") or K4 on one state and batch against the twin,
+    each on its own copy of the weights and planes."""
+    w = dict(world)
+    L, K = w.pop("L"), w.pop("K")
+    state, batch = update_inputs(dev, rng, g, P, L, K, **w)
+    kernel, plain = ((kk.observe, kk.observe_plain) if name == "K2"
+                     else (kk.fused_update, kk.fused_update_plain))
+
+    def fresh():
+        return (state.xv, state.logw.clone(), state.lm.clone(),
+                state.lm_P.clone(), *batch, R)
+    a_k, a_p = fresh(), fresh()
+    kernel(*a_k)
+    plain(*a_p)
+    _sync(dev)
+    return dict(shape=f"K={K} L={L} P={P}", held="TOL",
+                max_abs_err=_close(name, a_k[1:4], a_p[1:4], TOL))
+
+
+def _resample_update(dev, rng, g, P, world) -> dict:
+    """K5 on the bounds of a fired resample: bit-equal to G2 + K4, within
+    TOL of its twin."""
+    w = dict(world)
+    L, K = w.pop("L"), w.pop("K")
+    state, batch = update_inputs(dev, rng, g, P, L, K, **w)
+    logw = torch.randn(P, generator=g, device=dev)
+    S = k5_bounds(dev, rng, g, P, "fired")
+
+    def args(lw):
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
+    lw = [logw.clone() for _ in range(3)]
+    got = (lw[0], *kk.resample_update(*args(lw[0])))
+    lm_g, lmP_g = kg.bounds_gather_multi(
+        [state.lm.reshape(2 * L, P), state.lm_P.reshape(3 * L, P)], S)
+    lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
+    kk.fused_update(state.xv, lw[1], lm_g, lmP_g, *batch, R)
+    want = (lw[2], *kk.resample_update_plain(*args(lw[2])))
+    _sync(dev)
+    check(all(torch.equal(a, b) for a, b in zip(got, (lw[1], lm_g, lmP_g))),
+          f"K5 (K={K} L={L} P={P}): not bit-equal to G2 + K4")
+    return dict(shape=f"K={K} L={L} P={P}", held="bit-equal to G2 + K4; TOL",
+                max_abs_err=_close("K5", got, want, TOL))
+
+
+def gather_inputs(dev, g, name, P, L):
+    """G1's or G2's inputs over the resample gather's three row sets,
+    10 + 5L rows of P columns: (arrays, the ancestors of a stratified
+    resample for G1 or its offspring bounds for G2, kernel, twin)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    arrays = [torch.randn((c, P), generator=g, **f32) * 37
+              for c in (10, 2 * L, 3 * L)]
+    logw = torch.randn(P, generator=g, **f32) * 2.0
+    U = rs.uniform_from_generator(P, g, dev)
+    if name == "G1":
+        return (arrays, rs.stratified_indices(logw, U),
+                kg.sorted_gather_multi, kg.sorted_gather_multi_plain)
+    sel = rs.offspring_bounds(
+        rs.cumulative_weights(rs.normalize_log_weights(logw)), P, U)
+    return arrays, sel, kg.bounds_gather_multi, kg.bounds_gather_multi_plain
+
+
+def _gather(dev, g, name, P, L) -> dict:
+    """G1 (by the stratified ancestors) or G2 (by the offspring bounds)
+    over the resample gather's 10 + 5L rows."""
+    arrays, sel, kernel, plain = gather_inputs(dev, g, name, P, L)
+    got, want = kernel(arrays, sel), plain(arrays, sel)
+    _sync(dev)
+    return dict(shape=f"rows={10 + 5 * L} P={P}", held="bit-equal",
+                max_abs_err=_bit_equal(name, got, want))
+
+
+def _predict(dev, g, name, P, noise: bool) -> dict:
+    """K6 (FastSLAM 1, noise on, as its path forces) or K6b (FastSLAM 2,
+    noise off, SWITCH_PREDICT_NOISE's default) over T_PREDICT ticks."""
+    fs2 = name == "K6b"
+    kernel, plain = ((kp.fs2_predict_multi, kp.fs2_predict_multi_plain)
+                     if fs2 else
+                     (kp.fs1_predict_multi, kp.fs1_predict_multi_plain))
+    state, ctl, seed = predict_inputs(dev, g, P, T_PREDICT, fs2)
+    got = [a.clone() for a in state]
+    want = [a.clone() for a in state]
+    kw = dict(wheelbase=4.0, dt=0.025, add_noise=noise)
+    kernel(*got, seed, ctl, Q, **kw)
+    plain(*want, seed, ctl, Q, **kw)
+    _sync(dev)
+    check(not torch.equal(got[0], state[0]), f"{name}: the poses did not move")
+    return dict(shape=f"T={T_PREDICT} P={P} noise {'on' if noise else 'off'}",
+                held="bit-equal", max_abs_err=_bit_equal(name, got, want))
+
+
+def refine_inputs(dev, rng, g, P, K):
+    """K3's arguments at K observations, P particles: every fifth
+    observation unmatched, its planes those of a landmark at the
+    particle's own position (zero distance), which the kernel must pass
+    by untouched; Pv at the scale a superstep of predict accumulates."""
+    xv, planes, z = gathered_planes(dev, rng, g, P, K)
+    matched = torch.arange(K, device=dev) % 5 != 4
+    planes[0][~matched] = xv[0]
+    planes[1][~matched] = xv[1]
+    B = 0.01 * torch.randn((3, 3, P), generator=g, device=dev)
+    M = torch.einsum("ikp,jkp->ijp", B, B) + 1e-5 * torch.eye(
+        3, device=dev)[:, :, None]
+    Pv = torch.stack([M[0, 0], M[0, 1], M[0, 2], M[1, 1], M[1, 2],
+                      M[2, 2]]).contiguous()
+    return (xv, Pv, *planes, z, matched, R)
+
+
+def compare_refine(got, want) -> float:
+    """K3's outputs against its twin's at the golden tolerances, the
+    heading wrapped; the largest error."""
+    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+          "K3: non-finite output")
+    err = compare_poses(got[0], want[0], TOL_REFINE_XV)
+    torch.testing.assert_close(got[1], want[1], **TOL_REFINE_PV)
+    return max(err, max_abs_err([got[1]], [want[1]]))
+
+
+def _refine(dev, rng, g, P, K) -> dict:
+    args = refine_inputs(dev, rng, g, P, K)
+    got, want = kk.fs2_refine(*args), kk.fs2_refine_plain(*args)
+    _sync(dev)
+    return dict(shape=f"K={K} P={P}", held="golden",
+                max_abs_err=compare_refine(got, want))
+
+
+def _jacobians(dev, rng, g, P, K) -> dict:
+    """K1 against ``ops.planes.jacobians_planes``, bearings wrapped."""
+    xv, planes, _ = gathered_planes(dev, rng, g, P, K)
+    got = kk.jacobians(xv, *planes, R)
+    want = pk.jacobians_planes(xv[0:1], xv[1:2], xv[2:3], *planes,
+                               *pk.sym2_host(R))
+    _sync(dev)
+    err = 0.0
+    for name, a, b in zip(got._fields, got, want):
+        b = b.expand_as(a)
+        if name == "zb":
+            a, b = wrap_angle(a - b), torch.zeros_like(a)
+        err = max(err, _close(f"K1 {name}", [a], [b], TOL))
+    return dict(shape=f"K={K} P={P}", held="TOL", max_abs_err=err)
+
+
+def check_all(device, p_small: int, p_large: int, p_k1: int,
+              webmap: dict, config5: dict) -> dict:
+    """Every kernel once against its twin at these shapes, in the order
+    of the bench lines; raises on the first mismatch, and on a card when
+    a wrapper launched no kernel. {check: its shape, what it was held
+    to, the largest error}."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    before = launch_counts()
+    out = {"K2": _update(dev, rng, g, "K2", p_small, webmap),
+           "G1": _gather(dev, g, "G1", p_small, webmap["L"]),
+           "K6": _predict(dev, g, "K6", p_large, noise=True),
+           "K4": _update(dev, rng, g, "K4", p_large, webmap),
+           "K5": _resample_update(dev, rng, g, p_large, webmap),
+           "G2": _gather(dev, g, "G2", p_large, webmap["L"]),
+           "K6b": _predict(dev, g, "K6b", p_large, noise=False),
+           "K3": _refine(dev, rng, g, p_large, webmap["K"]),
+           "K1": _jacobians(dev, rng, g, p_k1, webmap["K"]),
+           "K4 config5": _update(dev, rng, g, "K4", p_large, config5),
+           "K5 config5": _resample_update(dev, rng, g, p_large, config5)}
+    if dev.type == "cuda":
+        after = launch_counts()
+        idle = [k for k in after if after[k] == before[k]]
+        check(not idle, f"kernel gate: {idle} never launched")
+        torch.cuda.empty_cache()
+    return out
+
+
+def run(device) -> dict:
+    """The gate at the bench lines' shapes, on a CUDA device (a CPU
+    device raises ``ValueError``: there every wrapper is its own twin)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel gate runs on a CUDA device, not on "
+                         f"{dev}: on the CPU every wrapper runs its twin")
+    return check_all(dev, P_SMALL, P_LARGE, P_K1, WEBMAP, CONFIG5)

@@ -13,6 +13,10 @@
   data/ring40, at P = 64 (K2 + G1) and P = 512 (K4 + G2), the resample
   gate firing and holding, with JAX's proposal draw and stratified
   dither injected.
+- A drive: both packages' FastSLAM 2 superstep (predict and
+  ``fs2_update``) for 24 supersteps on ring40's JAX observation stream,
+  each on its own state, at P = 64 and 512, with one numpy draw of
+  motion noise and JAX's proposal draw, dither and prefix sum injected.
 - On a card, K1, K3 and K6b against their twins.
 
 Tolerances, each with its reason:
@@ -29,10 +33,12 @@ Tolerances, each with its reason:
   term is a difference of two 3x3 quadratic forms through the adjugate
   of a pose covariance whose determinant is ~1e-13 after a superstep,
   which moves float32 rounding up to ~1.1e-4 relative (measured on the
-  ring40 fixture below);
+  ring40 fixture below); in the drive at rtol 2e-3, since the weights
+  sum that term over the supersteps between two resamples;
 - n, da_table, the gate decision and the ancestors exactly.
 """
 
+import functools
 import math
 import os
 
@@ -66,6 +72,7 @@ from slam_tpu_torch.ops import planes as tpk
 from slam_tpu_torch.ops import resampling as trs
 from slam_tpu_torch.ops.kernels import kernels as tkernels
 from slam_tpu_torch.ops.kernels import predict as tp
+from test_torch_fastslam1 import stream  # noqa: F401 (a fixture)
 
 DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data")
 R = np.diag([0.01, 0.0003]).astype(np.float32)
@@ -633,6 +640,150 @@ def test_fs2_predict_multi_runs_k6b_twin_in_place():
     assert out.xv is xv and out.Pv is Pv
     assert float(Pv[0].min()) > 0 and float(xv[0].std()) > 0
     assert tk.launch_counts()["K6b"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Many supersteps against JAX
+# ---------------------------------------------------------------------------
+
+@functools.partial(jax.jit, static_argnames=("wheelbase", "dt"))
+def _jax_drive_predict(state, V, G, Q, wheelbase, dt):
+    """JAX's fs2_predict over the ticks of a superstep, its control draw
+    switched off and the per-particle controls V, G [T, P] fed in as the
+    nominal ones."""
+    shape = jrbpf.tile_shape(state.n_particles)
+    for t in range(V.shape[0]):
+        state = jfs2.fs2_predict(state, jax.random.key(0),
+                                 V[t].reshape(shape), G[t].reshape(shape),
+                                 Q, wheelbase=wheelbase, dt=dt,
+                                 add_noise=False)
+    return state
+
+
+@jax.jit
+def _jax_drive_update(state, key, z, ids, zmask, R, n_min):
+    """JAX's fs2_update (use_pallas=False) and what the port is fed and
+    held to: its proposal draw eps, the gate, the prefix sum of the
+    stratified resample, its dither U and its ancestors."""
+    pre = []
+
+    def resample(s, rkey, n_min):
+        pre.append((s, rkey))
+        return jrbpf.resample(s, rkey, n_min, True)
+    post = jfs2.fs2_update(state, key, z, ids, zmask, R, n_min,
+                           use_pallas=False, resample_fn=resample)
+    s, rkey = pre[0]
+    logw_n = jrs.normalize_log_weights(s.logw)
+    P = logw_n.shape[0]
+    return dict(post=post,
+                eps=jax.random.normal(jax.random.split(key)[1], (3, P),
+                                      dtype=jnp.float32),
+                need=jrs.effective_particles(logw_n) < n_min,
+                csum=jrs._cumsum_2d(jnp.exp(jrs.normalize_log_weights(
+                    logw_n))),
+                U=jrs._uniform_at(rkey, jnp.arange(P, dtype=jnp.int32)),
+                idx=jrs.stratified_indices(rkey, logw_n))
+
+
+# The drive's logw: test_fs2_update_matches_jax's round moves float32
+# rounding of the prior / proposal term up to ~1.1e-4 relative per
+# round, and the weights sum those terms over every superstep between
+# two resamples; measured 1.05e-3 relative at superstep 18 at P = 64,
+# 6.1e-4 at P = 512. The gate and the ancestors, which the weights
+# decide, are held exactly.
+TOL_LOGW_DRIVE = dict(rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("P", [64, 512], ids=["K2-G1", "K4-G2"])
+def test_drive_matches_jax(stream, P, monkeypatch):
+    """DRIVE_SUPERSTEPS supersteps of FastSLAM 2 on ring40's JAX
+    observation stream (tests/test_torch_fastslam1.py's ``stream``, seed
+    3), each package on its own state from the same start (every
+    particle at the true pose, Pv zero, no landmark mapped): per
+    superstep the motion noise from one numpy draw, then JAX's proposal
+    draw, stratified dither and prefix sum injected. After each
+    superstep: xv and lm at TOL_REFINE_XV, Pv and lm_P at TOL_REFINE_PV
+    (test_fs2_update_matches_jax's tolerances), logw at TOL_LOGW_DRIVE;
+    n, da_table, the gate and the ancestors exactly. The resample fires
+    and holds along the way. About 6 s per particle count on one CPU
+    worker, JAX's compiles included."""
+    cfg, slam_map, pose, steps = stream
+    n_map = slam_map.n_landmarks
+    L = -(-n_map // 8) * 8
+    jstate = jinit(P, L, n_map)._replace(
+        xv=jnp.asarray(np.repeat(pose[:, None], P, axis=1)))
+    tstate = state_from_numpy(_as_numpy(jstate), device="cpu")
+    Qd = np.diag(np.asarray(cfg.Qe, np.float32))
+    n_min = float(cfg.NEFFECTIVE * P / cfg.NPARTICLES)
+    sig = np.sqrt(np.asarray(cfg.Qe, np.float32))
+    rng = np.random.default_rng(P)
+
+    seen = dict(gates=[], ancestors=[])
+    resample_gate = trbpf.resample_gate
+
+    def gate(logw, n_min, do_resample):
+        logw_n, fired = resample_gate(logw, n_min, do_resample)
+        seen["gates"].append(fired)
+        return logw_n, fired
+    monkeypatch.setattr(trbpf, "resample_gate", gate)
+    for name, to_ancestors in (
+            ("gather_particles", lambda idx: idx),
+            ("gather_particles_bounds",
+             lambda S: trs.ancestors_from_bounds(S, P))):
+        def wrapped(state, sel, _fn=getattr(trbpf, name), _a=to_ancestors):
+            seen["ancestors"].append(_a(sel))
+            return _fn(state, sel)
+        monkeypatch.setattr(trbpf, name, wrapped)
+    csum = {}
+    monkeypatch.setattr(trs, "cumulative_weights", lambda logw: csum["now"])
+
+    for i, (ctl, (z, ids, zmask)) in enumerate(steps):
+        T = ctl.shape[0]
+        V = (ctl[:, 0:1] + rng.normal(size=(T, P)) * sig[0]).astype(
+            np.float32)
+        G = (ctl[:, 1:2] + rng.normal(size=(T, P)) * sig[1]).astype(
+            np.float32)
+        jstate = _jax_drive_predict(jstate, jnp.asarray(V), jnp.asarray(G),
+                                    jnp.asarray(Qd), cfg.WHEELBASE,
+                                    cfg.DT_CONTROLS)
+        xv, Pv = tstate.xv, tstate.Pv
+        for t in range(T):
+            xv, Pv = tfs2.propagate_pose_covariance(
+                xv, Pv, torch.tensor(V[t]), torch.tensor(G[t]), Qd,
+                cfg.WHEELBASE, cfg.DT_CONTROLS)
+        tstate = tstate._replace(xv=xv, Pv=Pv)
+
+        want = _jax_drive_update(jstate, jax.random.PRNGKey(100 + i),
+                                 jnp.asarray(z), jnp.asarray(ids),
+                                 jnp.asarray(zmask), jnp.asarray(R),
+                                 jnp.float32(n_min))
+        csum["now"] = torch.tensor(np.asarray(want["csum"]))
+        U = torch.tensor(np.asarray(want["U"]))
+        n_seen = len(seen["ancestors"])
+        tstate = tfs2.fs2_update(tstate, torch.tensor(z), torch.tensor(ids),
+                                 torch.tensor(zmask), R, n_min,
+                                 torch.tensor(np.asarray(want["eps"])),
+                                 lambda pos: U[pos])
+        jstate = want["post"]
+
+        need = bool(want["need"])
+        assert seen["gates"][-1] == need, f"superstep {i}: gate"
+        assert len(seen["ancestors"]) == n_seen + need
+        if need:
+            np.testing.assert_array_equal(
+                seen["ancestors"][-1].numpy(), np.asarray(want["idx"]),
+                err_msg=f"superstep {i}: ancestors")
+        got, exp = state_to_numpy(tstate), _as_numpy(jstate)
+        for f, tol in (("logw", TOL_LOGW_DRIVE), ("xv", TOL_REFINE_XV),
+                       ("lm", TOL_REFINE_XV), ("Pv", TOL_REFINE_PV),
+                       ("lm_P", TOL_REFINE_PV)):
+            np.testing.assert_allclose(got[f], exp[f], **tol,
+                                       err_msg=f"superstep {i}: {f}")
+        for f in ("n", "da_table"):
+            np.testing.assert_array_equal(got[f], exp[f],
+                                          err_msg=f"superstep {i}: {f}")
+    assert True in seen["gates"] and False in seen["gates"]
+    assert int(tstate.n) == 4
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,8 @@ print(len(names), "modules", *names)
     for name in ("posegraph", "posegraph.ba", "posegraph.distributed",
                  "posegraph.synthetic", "runtime.config5", "parallel.mesh",
                  "parallel.distributed", "parallel.resampling",
-                 "parallel.filter", "parallel.landmarks"):
+                 "parallel.filter", "parallel.landmarks", "bench",
+                 "quickstart", "ops.kernels.selfcheck", "runtime.anchors"):
         assert f"slam_tpu_torch.{name}" in names, name
 
 
