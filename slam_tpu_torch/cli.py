@@ -6,7 +6,9 @@ name runs the EKF, as in the JAX package), ``-particles``, ``-ticks``,
 ``-seed``, ``-out``, any config key as ``-KEY value``, and the run
 options ``-plot`` (stream the run to a slam-gui: the native publisher
 when its library loads, else the Python one), ``-profile <dir>`` (a
-profiler trace of the run) and ``-ckpt <path>`` (a checkpointed run
+profiler trace of the run, and ``<dir>/spans.json``: the run's spans,
+``slam_tpu_torch.spans``, on the trace's clock, whose self times per
+span name are printed on stderr) and ``-ckpt <path>`` (a checkpointed run
 that resumes from ``<path>`` when it exists). The map's ``<map>.ini``
 is loaded when it exists. The run takes place on the card (``cuda``);
 without one the command fails with the reason on stderr and a non-zero
@@ -35,7 +37,8 @@ Usage: python -m slam_tpu_torch [options]
     -seed <N>        PRNG seed
     -device <dev>    cuda | cuda:N | cpu (default: cuda; fails without a card)
     -plot            stream ZMQ telemetry to a running slam-gui
-    -profile <dir>   write a torch.profiler trace of the run into <dir>
+    -profile <dir>   write a torch.profiler trace of the run into <dir>,
+                     and its spans into <dir>/spans.json
     -ckpt <path>     checkpoint path prefix (a chunked run that resumes)
     -out <dir>       report output directory (default .)
     -KEY <value>     override any config key (e.g. -SWITCH_HEADING_KNOWN 0)
@@ -99,7 +102,7 @@ def main(argv: list[str] | None = None) -> int:
         from slam_tpu_torch.runtime.profiling import trace
         profiler = trace(profile_dir)
     nt = int(n_ticks) if n_ticks else None
-    with profiler:
+    with profiler as prof:
         if use_plot:
             try:
                 from slam_tpu_torch.runtime.native import NativeNetworkPlot
@@ -116,6 +119,10 @@ def main(argv: list[str] | None = None) -> int:
                                              resume=True)
         else:
             result = runner.run(seed=seed, n_ticks=nt)
+    if prof is not None:
+        from slam_tpu_torch import spans
+        from slam_tpu_torch.runtime.profiling import span_table
+        print(span_table(spans.summary()), file=sys.stderr)
     metrics = compute_metrics(result)
     print(metrics.summary(), file=sys.stderr)
     path = write_report(result, sim_name, out_dir)

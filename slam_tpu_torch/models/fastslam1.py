@@ -48,6 +48,7 @@ from slam_tpu_torch.ops.kernels import (
     observe,
     resample_update,
 )
+from slam_tpu_torch.spans import span
 
 FUSED_ALIGN = 128     # K4 when P is a multiple of this
 DEFERRED_ALIGN = 512  # FastSlam1Deferred takes only multiples of this
@@ -149,7 +150,9 @@ def deferred_resample_bounds(logw, n_min: float, do_resample: bool,
     holds. The permutation is not applied here. The gate is read on the
     host (``rbpf.resample_gate``); the prefix sum and the bounds run only
     when it fires, through ``rs.cumulative_weights`` and
-    ``rs.offspring_bounds``."""
+    ``rs.offspring_bounds``. ``fs1_update_deferred`` takes these steps
+    itself, so that one ``filter.resample`` span holds the bounds and the
+    pose rows' gather."""
     n = logw.shape[-1]
     logw_n, fired = rbpf.resample_gate(logw, n_min, do_resample)
     if not fired:
@@ -169,9 +172,13 @@ def fs1_update_deferred(dstate: DeferredState, z, ids, zmask, R,
     When a resample is pending, K5 gathers the landmark planes by its
     bounds and updates them into fresh buffers; when none is, K4
     updates them in place, with no copy. This update's own decision
-    becomes the next pending bounds; when it fires, only the 9 pose rows
-    [xv; Pv] are gathered now (G2), because the predict reads them
-    before the next update, and the weights are reset to uniform.
+    becomes the next pending bounds: the Neff gate, read on the host
+    (``rbpf.resample_gate``), and, only when it fires, the prefix sum and
+    the offspring bounds (``rs.cumulative_weights``,
+    ``rs.offspring_bounds``); the bounds are arange(1, P + 1) when the
+    gate holds. When it fires, only the 9 pose rows [xv; Pv] are
+    gathered now (G2), because the predict reads them before the next
+    update, and the weights are reset to uniform.
     Equal to ``fs1_update`` followed by its gather, up to the one-update
     delay of the landmark gather, which ``finalize_deferred`` applies.
 
@@ -192,12 +199,19 @@ def fs1_update_deferred(dstate: DeferredState, z, ids, zmask, R,
     rbpf.set_table(state.da_table, ids, slot_new, ok)
     state = state._replace(n=state.n + ok.sum(dtype=torch.int32))
 
-    S_next, fired, logw = deferred_resample_bounds(state.logw, n_min,
-                                                   do_resample, uniform_at)
+    P = state.n_particles
+    logw, fired = rbpf.resample_gate(state.logw, n_min, do_resample)
     if fired:
-        (small,) = bounds_gather_multi([torch.cat([state.xv, state.Pv])],
-                                       S_next)
-        state = state._replace(xv=small[:3], Pv=small[3:])
+        with span("filter.resample"):
+            S_next = rs.offspring_bounds(rs.cumulative_weights(logw), P,
+                                         uniform_at)
+            (small,) = bounds_gather_multi(
+                [torch.cat([state.xv, state.Pv])], S_next)
+            state = state._replace(xv=small[:3], Pv=small[3:])
+            logw = torch.full_like(logw, -math.log(P))
+    else:
+        S_next = torch.arange(1, P + 1, dtype=torch.int32,
+                              device=logw.device)
     return DeferredState(ps=state._replace(logw=logw), S=S_next,
                          pending=fired)
 

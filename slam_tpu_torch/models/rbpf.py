@@ -25,6 +25,7 @@ from slam_tpu_torch.models.particles import (
 )
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
+from slam_tpu_torch.spans import span
 
 
 BOUNDS_ALIGN = 512    # resample through G2 when P is a multiple of this
@@ -33,7 +34,8 @@ BOUNDS_ALIGN = 512    # resample through G2 when P is a multiple of this
 def host_bool(flag: torch.Tensor) -> bool:
     """Read a device bool on the host: one device-to-host sync."""
     host_bool.count += 1
-    return bool(flag)
+    with span("filter.host_read"):
+        return bool(flag)
 
 
 host_bool.count = 0
@@ -221,11 +223,12 @@ def resample(state: ParticleState, n_min: float, do_resample: bool,
     logw_n, fired = resample_gate(state.logw, n_min, do_resample)
     if not fired:
         return state._replace(logw=logw_n)
-    if n % BOUNDS_ALIGN == 0:
-        S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n,
-                                uniform_at)
-        state = gather_particles_bounds(state, S)
-    else:
-        state = gather_particles(state,
-                                 rs.stratified_indices(logw_n, uniform_at))
-    return state._replace(logw=torch.full_like(logw_n, -math.log(n)))
+    with span("filter.resample"):
+        if n % BOUNDS_ALIGN == 0:
+            S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n,
+                                    uniform_at)
+            state = gather_particles_bounds(state, S)
+        else:
+            state = gather_particles(
+                state, rs.stratified_indices(logw_n, uniform_at))
+        return state._replace(logw=torch.full_like(logw_n, -math.log(n)))

@@ -29,6 +29,7 @@ import torch.distributed as dist
 from slam_tpu_torch.models import rbpf
 from slam_tpu_torch.ops import resampling as rs
 from slam_tpu_torch.ops.kernels import bounds_gather_multi, sorted_gather_multi
+from slam_tpu_torch.spans import span
 
 PARTICLE_FIELDS = ("xv", "Pv", "lm", "lm_P")
 
@@ -81,14 +82,16 @@ def ring_resample(state, logw, generator, n_min: float, do_resample: bool,
     if not need:
         return state, torch.log(torch.clamp(wn, min=1e-38)), False
 
-    # My output slots' stratified positions (global slot ids).
-    gslot = me * Pl + torch.arange(Pl, dtype=torch.int32, device=wn.device)
-    u = (gslot.to(wn.dtype) + dither) / float(N)
-    if S == 1:
-        state = _run_local(state, wn, u, dither, particle_fields)
-    else:
-        state = _run_ring(state, wn, u, group, particle_fields)
-    return state, torch.full_like(logw, -math.log(N)), True
+    with span("filter.resample"):
+        # My output slots' stratified positions (global slot ids).
+        gslot = me * Pl + torch.arange(Pl, dtype=torch.int32,
+                                       device=wn.device)
+        u = (gslot.to(wn.dtype) + dither) / float(N)
+        if S == 1:
+            state = _run_local(state, wn, u, dither, particle_fields)
+        else:
+            state = _run_ring(state, wn, u, group, particle_fields)
+        return state, torch.full_like(logw, -math.log(N)), True
 
 
 def _rows(state, particle_fields):

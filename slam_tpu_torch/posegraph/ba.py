@@ -43,6 +43,7 @@ from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.models.ekf import full_f32
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops.kalman import cholesky_lower
+from slam_tpu_torch.spans import span
 
 # Information weight of the gauge-prior factor anchoring pose 0. It is a
 # real factor (its residual pulls pose 0 back to its anchor), not only a
@@ -182,8 +183,9 @@ def obs_plan(lm_idx, mask, L: int) -> ObsPlan:
     read of ``lm_idx`` and ``mask``), on their device. The others add
     nothing: their terms are zero in the JAX package's sums too. Raises
     ValueError for an index outside [0, L)."""
-    host = torch.stack([lm_idx.to(torch.int32),
-                        mask.to(torch.int32)]).cpu().numpy()
+    packed = torch.stack([lm_idx.to(torch.int32), mask.to(torch.int32)])
+    with span("ba.host_read"):
+        host = packed.cpu().numpy()
     idx, valid = host[0].reshape(-1), host[1].reshape(-1).astype(bool)
     if idx.size and (idx.min() < 0 or idx.max() >= L):
         raise ValueError(f"landmark indices must lie in [0, {L}), got "
@@ -428,18 +430,23 @@ def solve_ba(prob: BAProblem, iters: int = 10, damping: float = 1e-3,
     does. The damping is a float32 on the device, changed by the same
     operations as in ``solve_ba_device`` (JAX keeps a Python float here,
     which may differ from its device loop's in the last bits)."""
-    with full_f32():
+    with span("ba.solve"), full_f32():
         poses, landmarks, static, plan, lam = _start(prob, damping)
-        cost = float(_ba_cost(poses, landmarks, *static))
+        cost = _ba_cost(poses, landmarks, *static)
+        with span("ba.host_read"):
+            cost = float(cost)
         costs, n_steps, reads = [cost], 0, 2
         for _ in range(iters):
             accepted = False
             for _retry in range(max_retries + 1):
-                trial_p, trial_l = _gn_step(poses, landmarks, *static, lam,
-                                            plan)
-                n_steps += 1
-                trial_cost = float(_ba_cost(trial_p, trial_l, *static))
-                reads += 1
+                with span("ba.trial"):
+                    trial_p, trial_l = _gn_step(poses, landmarks, *static,
+                                                lam, plan)
+                    n_steps += 1
+                    trial_cost = _ba_cost(trial_p, trial_l, *static)
+                    with span("ba.host_read"):
+                        trial_cost = float(trial_cost)
+                    reads += 1
                 if math.isfinite(trial_cost) and trial_cost <= cost:
                     accepted = True
                     break
@@ -453,9 +460,12 @@ def solve_ba(prob: BAProblem, iters: int = 10, damping: float = 1e-3,
             lam = _lowered(lam)
             if gain <= tol * max(cost, 1.0):
                 break
+        if return_info:
+            with span("ba.host_read"):
+                final_damping = float(lam)
     if return_info:
         return poses, landmarks, {"costs": costs, "n_steps": n_steps,
-                                  "final_damping": float(lam),
+                                  "final_damping": final_damping,
                                   "host_reads": reads + 1}
     return poses, landmarks
 
@@ -478,32 +488,36 @@ def solve_ba_device(prob: BAProblem, iters: int = 10,
     threshold). ``return_info`` adds a dict: final cost, ``n_steps``
     (trials), ``n_accepted``, the final damping, ``host_reads`` (the
     plan's and one per trial)."""
-    with full_f32():
+    with span("ba.solve"), full_f32():
         poses, landmarks, static, plan, lam = _start(prob, damping)
         cost = _ba_cost(poses, landmarks, *static)
         n_acc, n_steps, reads, done, last = 0, 0, 1, False, None
         while not done and n_acc < iters:
             for _ in range(max_retries + 1):
-                tp, tl = _gn_step(poses, landmarks, *static, lam, plan)
-                tc = _ba_cost(tp, tl, *static)
-                acc = torch.isfinite(tc) & (tc <= cost)
-                converged = acc & (cost - tc
-                                   <= tol * torch.clamp(tc, min=1.0))
-                poses = torch.where(acc, tp, poses)
-                landmarks = torch.where(acc, tl, landmarks)
-                cost = torch.where(acc, tc, cost)
-                lam = torch.where(acc, _lowered(lam), _raised(lam))
-                last = torch.stack([acc.to(cost.dtype),
-                                    converged.to(cost.dtype), cost,
-                                    lam]).cpu().numpy()
-                n_steps += 1
-                reads += 1
+                with span("ba.trial"):
+                    tp, tl = _gn_step(poses, landmarks, *static, lam, plan)
+                    tc = _ba_cost(tp, tl, *static)
+                    acc = torch.isfinite(tc) & (tc <= cost)
+                    converged = acc & (cost - tc
+                                       <= tol * torch.clamp(tc, min=1.0))
+                    poses = torch.where(acc, tp, poses)
+                    landmarks = torch.where(acc, tl, landmarks)
+                    cost = torch.where(acc, tc, cost)
+                    lam = torch.where(acc, _lowered(lam), _raised(lam))
+                    last = torch.stack([acc.to(cost.dtype),
+                                        converged.to(cost.dtype), cost, lam])
+                    with span("ba.host_read"):
+                        last = last.cpu().numpy()
+                    n_steps += 1
+                    reads += 1
                 if last[0]:
                     break
             n_acc += bool(last[0])
             done = not last[0] or bool(last[1])
         if last is None:
-            last = torch.stack([cost, cost, cost, lam]).cpu().numpy()
+            last = torch.stack([cost, cost, cost, lam])
+            with span("ba.host_read"):
+                last = last.cpu().numpy()
             reads += 1
     if return_info:
         return poses, landmarks, {

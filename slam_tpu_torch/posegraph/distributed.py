@@ -55,6 +55,7 @@ from slam_tpu_torch.posegraph.ba import (
     _times_blocks,
     obs_plan,
 )
+from slam_tpu_torch.spans import span
 
 LM_AXIS = "l"
 
@@ -186,10 +187,13 @@ def make_lm_iteration(mesh: DeviceMesh | None, T: int, L: int,
                 mask, R, anchor, plan: ObsPlan):
         static = (odom, odom_info, z, lm_idx, mask, R, anchor)
         for tries in range(1, max_retries + 2):
-            tp, tl = trial(poses, landmarks, *static, lam, plan)
-            tc = _sharded_cost(tp, tl, *static, shard, group)
-            acc = torch.isfinite(tc) & (tc <= cost)
-            acc_h, tc_h = torch.stack([acc.to(tc.dtype), tc]).tolist()
+            with span("ba.trial"):
+                tp, tl = trial(poses, landmarks, *static, lam, plan)
+                tc = _sharded_cost(tp, tl, *static, shard, group)
+                acc = torch.isfinite(tc) & (tc <= cost)
+                packed = torch.stack([acc.to(tc.dtype), tc])
+                with span("ba.host_read"):
+                    acc_h, tc_h = packed.tolist()
             if acc_h:
                 return tp, tl, tc, _lowered(lam), True, tc_h, tries
             lam = _raised(lam)
@@ -219,7 +223,7 @@ def solve_ba_sharded(prob: BAProblem, mesh: DeviceMesh | None = None,
     L_local = L_pad // n_shards
     lm_iter = make_lm_iteration(mesh, prob.T, L_pad,
                                 max_retries=max_retries)
-    with full_f32():
+    with span("ba.solve"), full_f32():
         poses = prob.poses0.to(torch.float32)
         landmarks = prob.landmarks0.to(torch.float32)
         # Padded rows have no observations: their blocks are the damping
@@ -234,7 +238,8 @@ def solve_ba_sharded(prob: BAProblem, mesh: DeviceMesh | None = None,
                          device=poses.device)
         # The first cost from the whole initial map, on every rank.
         cost = _ba_cost(poses, landmarks, *static)
-        cost_h = float(cost)
+        with span("ba.host_read"):
+            cost_h = float(cost)
         lm_local = landmarks[shard * L_local:(shard + 1) * L_local]
         costs, n_iters, n_steps, reads = [cost_h], 0, 0, 2
         for _ in range(iters):
@@ -250,7 +255,7 @@ def solve_ba_sharded(prob: BAProblem, mesh: DeviceMesh | None = None,
             costs.append(cost_h)
             if gain <= tol * max(cost_h, 1.0):
                 break
-    landmarks = all_gather_rows(lm_local, group)[:prob.L]
+        landmarks = all_gather_rows(lm_local, group)[:prob.L]
     if return_info:
         return poses, landmarks, {"costs": costs, "n_iters": n_iters,
                                   "n_steps": n_steps, "host_reads": reads}

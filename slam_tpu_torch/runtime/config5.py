@@ -51,6 +51,7 @@ from slam_tpu_torch.posegraph import problem_from_run, solve_ba_sharded
 from slam_tpu_torch.posegraph.distributed import LM_AXIS
 from slam_tpu_torch.runtime.loop import Runner
 from slam_tpu_torch.runtime.metrics import compute_metrics
+from slam_tpu_torch.spans import span
 
 
 class Config5Result(NamedTuple):
@@ -154,12 +155,14 @@ def run_config5(n_particles: int = 1_000_000,
     result = runner.run(seed=seed,
                         n_ticks=n_supersteps * cfg.steps_per_observe)
 
-    prob = problem_from_run(result, cfg, slam_map, device=device)
+    with span("config5.problem"):
+        prob = problem_from_run(result, cfg, slam_map, device=device)
     t0 = time.perf_counter()
-    poses_ref, _, info = solve_ba_sharded(prob, ba_mesh, iters=ba_iters,
-                                          return_info=True)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with span("config5.ba"):
+        poses_ref, _, info = solve_ba_sharded(prob, ba_mesh, iters=ba_iters,
+                                              return_info=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     ba_seconds = time.perf_counter() - t0
     walls = (result.wall_seconds, ba_seconds, result.compile_seconds)
     if ba_mesh is not None:

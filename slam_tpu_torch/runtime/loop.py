@@ -34,6 +34,7 @@ from slam_tpu_torch.maps import SlamMap
 from slam_tpu_torch.models import make_estimator, rbpf
 from slam_tpu_torch.sim.simulator import Simulator
 from slam_tpu_torch.sim.vehicle import predict_true_position
+from slam_tpu_torch.spans import span
 
 
 class RunResult(NamedTuple):
@@ -119,15 +120,18 @@ class Runner:
         ekf = getattr(self.est, "IS_EKF", False)
         dr = torch.zeros(3, dtype=torch.float32, device=self.device)
         for _ in range(self.config.steps_per_observe):
-            sim_state, controls, dr = self._control_tick(sim_state, dr)
-            # An EKF observes the noisy IMU heading, FastSLAM the true
-            # one.
-            if ekf:
-                sim_state, phi = self.sim.heading_measurement(sim_state)
-            else:
-                phi = sim_state.vehicle.pose[2]
-            est_state = self.est.predict(est_state, gen, controls.v_noisy,
-                                         controls.g_noisy, phi)
+            with span("sim.control"):
+                sim_state, controls, dr = self._control_tick(sim_state, dr)
+                # An EKF observes the noisy IMU heading, FastSLAM the
+                # true one.
+                if ekf:
+                    sim_state, phi = self.sim.heading_measurement(sim_state)
+                else:
+                    phi = sim_state.vehicle.pose[2]
+            with span("filter.predict"):
+                est_state = self.est.predict(est_state, gen,
+                                             controls.v_noisy,
+                                             controls.g_noisy, phi)
         return sim_state, est_state, dr
 
     def _superstep_multi(self, sim_state, est_state, gen):
@@ -137,24 +141,29 @@ class Runner:
         dr = torch.zeros(3, dtype=torch.float32, device=self.device)
         vs, gs = [], []
         for _ in range(self.config.steps_per_observe):
-            sim_state, controls, dr = self._control_tick(sim_state, dr)
+            with span("sim.control"):
+                sim_state, controls, dr = self._control_tick(sim_state, dr)
             vs.append(controls.v_noisy)
             gs.append(controls.g_noisy)
-        ctl = torch.stack([torch.stack(vs), torch.stack(gs)], dim=1)
-        return sim_state, self.est.predict_multi(est_state, gen, ctl), dr
+        with span("filter.predict"):
+            ctl = torch.stack([torch.stack(vs), torch.stack(gs)], dim=1)
+            est_state = self.est.predict_multi(est_state, gen, ctl)
+        return sim_state, est_state, dr
 
     def _init(self, seed: int):
         """Build the kernels (on the card), then the run's start: (sim
         state, estimator state, run generator, build seconds)."""
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            from slam_tpu_torch.ops.kernels import build
-            build.load_library()
-        build_s = time.perf_counter() - t0
-        sim_state = self.sim.init(seed=seed or self.config.SWITCH_SEED_RANDOM)
-        est_state = self.est.init(self.n_particles)
-        return (sim_state, est_state, self.sim.make_generator(seed + 1),
-                build_s)
+        with span("run.init"):
+            t0 = time.perf_counter()
+            if self.device.type == "cuda":
+                from slam_tpu_torch.ops.kernels import build
+                build.load_library()
+            build_s = time.perf_counter() - t0
+            sim_state = self.sim.init(
+                seed=seed or self.config.SWITCH_SEED_RANDOM)
+            est_state = self.est.init(self.n_particles)
+            return (sim_state, est_state, self.sim.make_generator(seed + 1),
+                    build_s)
 
     def _superstep_for(self, est_state):
         """The superstep the estimator takes: ``_superstep_multi`` for a
@@ -167,18 +176,27 @@ class Runner:
             return self._superstep_multi
         return self._superstep
 
-    def _step(self, superstep, sim_state, est_state, gen):
+    def _step(self, superstep, sim_state, est_state, gen, traces=None,
+              i: int = 0):
         """One superstep, observation and update: (sim state, estimator
         state, the superstep's trace row as a tuple of device tensors in
-        RunResult's order)."""
-        sim_state, est_state, dr = superstep(sim_state, est_state, gen)
-        sim_state, obs = self.sim.observe_step(sim_state)
-        est_state = self.est.update(est_state, gen, obs.z, obs.ids,
-                                    obs.mask)
-        out = (sim_state.vehicle.pose, self.est.pose(est_state),
-               ~sim_state.vehicle.done, obs.count,
-               torch.sum(torch.where(obs.mask, obs.z[:, 0], 0.0)),
-               obs.z, obs.mask, obs.ids, dr)
+        RunResult's order). With ``traces``, the row is also written at
+        ``i`` of those nine buffers."""
+        with span("superstep"):
+            sim_state, est_state, dr = superstep(sim_state, est_state, gen)
+            with span("sim.observe"):
+                sim_state, obs = self.sim.observe_step(sim_state)
+            with span("filter.update"):
+                est_state = self.est.update(est_state, gen, obs.z, obs.ids,
+                                            obs.mask)
+            with span("run.record"):
+                out = (sim_state.vehicle.pose, self.est.pose(est_state),
+                       ~sim_state.vehicle.done, obs.count,
+                       torch.sum(torch.where(obs.mask, obs.z[:, 0], 0.0)),
+                       obs.z, obs.mask, obs.ids, dr)
+                if traces is not None:
+                    for buf, value in zip(traces, out):
+                        buf[i] = value
         return sim_state, est_state, out
 
     def _chunk(self, superstep, sim_state, est_state, gen, n: int):
@@ -194,10 +212,8 @@ class Runner:
                   torch.empty((n, K), dtype=torch.int32, device=dev),
                   torch.empty((n, 3), **f32))
         for i in range(n):
-            sim_state, est_state, out = self._step(superstep, sim_state,
-                                                   est_state, gen)
-            for buf, value in zip(traces, out):
-                buf[i] = value
+            sim_state, est_state, _ = self._step(superstep, sim_state,
+                                                 est_state, gen, traces, i)
         return sim_state, est_state, traces
 
     def _sync(self):
@@ -274,12 +290,14 @@ class Runner:
                 superstep, sim_state, est_state, gen, every)
             chunks.append(to_host(traces))
             done += every
-            if sharded:
-                ckpt.save_sharded_checkpoint(ckpt_path, sim_state, self.est,
-                                             est_state, gen, done, meta)
-            else:
-                ckpt.save_checkpoint(ckpt_path, sim_state, est_state, gen,
-                                     done, meta)
+            with span("ckpt.save"):
+                if sharded:
+                    ckpt.save_sharded_checkpoint(ckpt_path, sim_state,
+                                                 self.est, est_state, gen,
+                                                 done, meta)
+                else:
+                    ckpt.save_checkpoint(ckpt_path, sim_state, est_state,
+                                         gen, done, meta)
         wall = time.perf_counter() - t0
         n_keep = n_supersteps - start
         traces = [np.concatenate([c[i] for c in chunks])[:n_keep]
@@ -299,7 +317,8 @@ class Runner:
 
 
 def to_host(tensors) -> list:
-    return [t.cpu().numpy() for t in tensors]
+    with span("run.to_host"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 def run_result(traces, final_state, n_ticks: int, wall: float,

@@ -3,9 +3,10 @@ function, and per superstep of a run (counterpart:
 slam_tpu.runtime.profiling, whose ``trace`` and ``time_phases`` are
 here too).
 
-``trace(log_dir)`` writes a profiler trace of a block (the CLI's
-``-profile``); ``time_phases(runner)`` is the median host time of a
-predict tick, an observe update and a superstep.
+``trace(log_dir)`` writes a profiler trace of a block and the spans
+(``slam_tpu_torch.spans``) recorded in it (the CLI's ``-profile``);
+``time_phases(runner)`` is the median host time of a predict tick, an
+observe update and a superstep.
 ``kernel_times(prof)`` sums a profile's kernels by name;
 ``device_ms(fn)`` is the mean device time of one call of ``fn`` (the
 kernels it ran, summed). ``main`` profiles the run loop of one slice,
@@ -42,8 +43,11 @@ supersteps and profiles config #5's BA stage on that run
 events, the device time, the host reads and the wall, and the shares of
 a trial's device time that the Schur product W All^-1 W' and the
 Cholesky factorization of the reduced system take (each timed alone at
-the solve's first point). The last line is one JSON object; ``--out
-DIR`` also writes the per-kernel table there. Needs a CUDA card.
+the solve's first point). Both profiled windows also give the spans
+recorded in them (``spans``): per superstep, or per BA trial, each
+span's count and total and self milliseconds. The last line is one JSON
+object; ``--out DIR`` also writes the per-kernel table there. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ from torch.profiler import (
     profile,
     tensorboard_trace_handler,
 )
+
+from slam_tpu_torch import spans
 
 
 def kernel_times(prof) -> dict:
@@ -116,13 +122,55 @@ def trace(log_dir: str):
     and (with a card) the CUDA activities, written into ``log_dir`` by
     ``tensorboard_trace_handler`` as a ``*.pt.trace.json`` file (the
     Chrome trace format: TensorBoard's profiler plugin or Perfetto open
-    it). Every kernel the card ran is in it by name."""
+    it). Every kernel the card ran is in it by name. The spans recorded
+    in the block go to ``log_dir/spans.json`` (``write_spans``). Yields
+    the profile."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    spans.clear()
     with profile(activities=acts,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+    write_spans(prof, os.path.join(log_dir, "spans.json"))
+
+
+def write_spans(prof, path: str) -> None:
+    """The span store as JSON in ``path``: its records (``fields``
+    names their entries; stamps in Unix nanoseconds), ``summary()``, the
+    counts of spans dropped and cut, and ``trace_start_ns``, the zero of
+    the finished profile ``prof``'s trace, whose events' ``time_range``
+    counts microseconds from it: a record and an event compare as
+    ``t0_ns`` against ``trace_start_ns + 1000 * time_range.start``."""
+    out = dict(trace_start_ns=prof.profiler.kineto_results.trace_start_ns(),
+               fields=["name", "id", "parent", "t0_ns", "t1_ns"],
+               records=spans.records(), summary=spans.summary(),
+               dropped=spans.dropped(), cut=spans.cut())
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+
+
+def span_table(summary: dict) -> str:
+    """``spans.summary()`` as a table, by self time."""
+    rows = [f"{'span':<18} {'count':>8} {'total ms':>12} {'self ms':>12}"]
+    for name, s in sorted(summary.items(), key=lambda kv: -kv[1]["self_s"]):
+        rows.append(f"{name:<18} {s['count']:>8} {s['total_s'] * 1e3:>12.3f}"
+                    f" {s['self_s'] * 1e3:>12.3f}")
+    return "\n".join(rows)
+
+
+def spans_per(within: str, n: int) -> dict:
+    """The recorded spans named ``within`` and those beneath them, per
+    one of ``n`` units: {name: {count, total_ms, self_ms}}."""
+    recs = spans.records()
+    table = spans.summary(recs, within=within)
+    units = spans.summary(recs).get(within)
+    if units:
+        table[within] = units
+    return {k: dict(count=v["count"] / n, total_ms=v["total_s"] / n * 1e3,
+                    self_ms=v["self_s"] / n * 1e3)
+            for k, v in table.items()}
 
 
 def _clone(tree):
@@ -352,7 +400,8 @@ def profile_ba(prob, solve, iters: int, top: int = 12) -> dict:
     Cholesky factorization alone, and their shares of a trial's device
     time (by CUDA events where the profiler sees no device time, as it
     sometimes does not for a bare cuBLAS product late in a long
-    process); the peak device memory of the solve."""
+    process); the peak device memory of the solve; the spans of the
+    profiled solve per trial (``spans_per``)."""
     from slam_tpu_torch.models.ekf import full_f32
     from slam_tpu_torch.ops.kalman import cholesky_lower
 
@@ -364,11 +413,13 @@ def profile_ba(prob, solve, iters: int, top: int = 12) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    spans.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solve(prob, iters=iters)
         torch.cuda.synchronize()
     n = info["n_steps"]
+    phases = spans_per("ba.solve", n)
     per = {key: (us / n / 1e3, calls / n)
            for key, (us, calls) in kernel_times(prof).items()}
     device_trial = sum(v[0] for v in per.values())
@@ -392,7 +443,7 @@ def profile_ba(prob, solve, iters: int, top: int = 12) -> dict:
         events_per_trial=sum(v[1] for v in per.values()),
         wall_ms_per_trial=wall / n * 1e3,
         device_busy_share=device_trial * n / (wall * 1e3), **parts,
-        peak_gib=peak,
+        peak_gib=peak, spans=phases,
         kernels=[dict(name=k, ms_per_trial=v[0], calls_per_trial=v[1])
                  for k, v in ranked[:top]])
 
@@ -400,11 +451,15 @@ def profile_ba(prob, solve, iters: int, top: int = 12) -> dict:
 def profile_runner(runner, warm: int, n: int, seed: int = 3,
                    top: int = 12) -> dict:
     """Per-superstep device time, device events and kernel table of a
-    run over a window of ``n`` supersteps after ``warm``, and the loop
+    run over a window of ``n`` supersteps after ``warm``, with the spans
+    of the supersteps recorded whole in it (``spans_per``), and the loop
     wall, host syncs and launches per superstep of two unprofiled runs
     of the same window; the peak device memory of those two."""
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    spans.clear()
     window_run(runner, seed, warm, n, prof)
+    steps = spans.summary().get("superstep", {}).get("count", 0)
+    phases = spans_per("superstep", steps) if steps else {}
     per = {key: (us / n / 1e3, calls / n, us / 1e3 / max(calls, 1))
            for key, (us, calls) in kernel_times(prof).items()}
     torch.cuda.reset_peak_memory_stats()
@@ -423,6 +478,7 @@ def profile_runner(runner, warm: int, n: int, seed: int = 3,
         host_syncs_per_superstep=runs[0]["host_syncs"],
         launches_per_superstep=runs[0]["launches"],
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        spans=phases,
         kernels=[dict(name=k, ms_per_superstep=v[0],
                       calls_per_superstep=v[1], ms_per_call=v[2])
                  for k, v in ranked[:top]],

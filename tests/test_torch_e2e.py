@@ -419,13 +419,15 @@ def test_cli_plot_does_not_swallow_the_next_flag(tmp_path, monkeypatch):
 
 def test_cli_profile_writes_a_trace(tmp_path):
     """-profile DIR: a torch.profiler trace of the run, in the Chrome
-    trace format, with the run's operators in it."""
+    trace format, with the run's operators in it, beside the run's spans
+    (spans.json, test_torch_spans.py)."""
     import json
 
     assert _cli(tmp_path, "-method", "FASTSLAM1", "-particles", "8",
                 "-ticks", "16", "-profile", str(tmp_path / "prof")) == 0
-    files = os.listdir(tmp_path / "prof")
+    files = [f for f in os.listdir(tmp_path / "prof") if f != "spans.json"]
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    assert (tmp_path / "prof" / "spans.json").exists()
     with open(tmp_path / "prof" / files[0]) as fh:
         events = json.load(fh)["traceEvents"]
     names = {e.get("name", "") for e in events}
