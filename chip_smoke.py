@@ -31,9 +31,12 @@ Phases, in order; any failure raises and exits non-zero:
    at T=8, P=2^20, at a ragged P (2^20 + 37), at a T (5) that is no
    multiple of the tick loop's unrolling and at a T (300, P=4133) that
    takes more than one launch; K3 (K=15, P=2^20) with matched and unmatched
-   slots; K1 (K=15, P=2^20). Gathers, K6 and K6b must be bit-equal to
-   their twins (the predicts keep the twins' operation order, and the
-   sweep below holds their sincosf and fast wrap to sinf, cosf and the
+   slots; K1 (K=15, P=2^20); S1, the simulator's control ticks, over a
+   4000-tick drive of the webmap world (500 launches of T=8) and timed
+   at T=8, its latency from its device times at T=64 and T=256.
+   Gathers, K6, K6b and S1 must be bit-equal to their twins (the
+   predicts and S1 keep the twins' operation order, and the sweep below
+   holds the predicts' sincosf and the fast wrap to sinf, cosf and the
    fmodf wrap on every float32 bit pattern); the other float outputs
    within rtol 1e-5, atol 1e-5 (the kernels
    sum over k in another order than the twins, and the device libm
@@ -56,7 +59,8 @@ Phases, in order; any failure raises and exits non-zero:
    with cuobjdump and set against the card's issue rate at the SM clock
    that nvidia-smi reports while they run (issue_bound_ms, issue_share).
 4. FastSLAM 1 end to end through Runner + compute_metrics; the launch
-   counters are reset before each run and read after it:
+   counters are reset before each run and read after it (in every run
+   of this and the later phases S1 launches once per superstep):
    (a) eager, data/dense200, P = 100, 2000 ticks, seeds 3, 4, 5: K2
        once per superstep and G1, and not K4 or G2; one host sync per
        superstep (the resample gate);
@@ -109,8 +113,9 @@ Phases, in order; any failure raises and exits non-zero:
        covariance), 640 ticks, seeds 3, 4, 5.
    Each runs its supersteps with torch.cuda.set_sync_debug_mode("error")
    (any host sync raises) and RunResult.host_syncs 0, launches none of
-   the nine kernels, leaves the runner, simulator, estimator and final
-   state on the card, and must reach an RMS ATE below twice the JAX
+   the nine estimator kernels (S1 once per superstep), leaves the
+   runner, simulator, estimator and final state on the card, and must
+   reach an RMS ATE below twice the JAX
    package's (JAX_EKF_*_ATE_M); one more run is profiled over a window
    for the device time per superstep.
 8. Sharded against dense: ShardedEkfSlam against EkfSlam on the JAX
@@ -204,7 +209,8 @@ Phases, in order; any failure raises and exits non-zero:
 18. The bench entry (slam_tpu_torch.bench), through its functions with
    no device named, at bench.py's full sizes: the primary line
    fastslam1_webmap (FastSLAM 1, P = 100, 4000 ticks, seeds 3-5, then a
-   16000-tick run of seed 3: K2 once per superstep, G1, nothing else)
+   16000-tick run of seed 3: K2 and S1 once per superstep, G1, nothing
+   else)
    and the ba_10k line (no kernel; bench.py's two checks); the primary
    JSON has bench.py's four keys, and each line lies within its limit
    (the ATE below twice the JAX package's mean on the same world, ticks
@@ -311,6 +317,10 @@ OPS_REFINE = 190     # K3 per matched (k, p): Jacobians, refine_pose_planes
 OPS_TICK_FS1 = 19    # K6's bicycle step, per (tick, p)
 OPS_NOISE = 120      # Philox4x32-10 (98) and Box-Muller (22), per (tick, p)
 OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
+OPS_TICK_SIM = 70    # S1's steering, truth, controls and odometry, a tick
+# S1's drives: the 4000-tick webmap drive of its card test, T = 8 a
+# launch; and the long launches whose device times give its latency.
+SIM_SUPERSTEPS, SIM_LONG = 500, (64, 256)
 
 # The issue bound of K6 and K6b: a thread's SASS instructions over the
 # card's issue rate, one warp instruction per scheduler and clock, with
@@ -351,6 +361,8 @@ KERNELS = {
            "slam_tpu/ops/pallas/kernels.py:225"),
     "K6b": ("slam_tpu_torch/csrc/predict.cu",
             "slam_tpu/ops/pallas/kernels.py:703"),
+    "S1": ("slam_tpu_torch/csrc/sim_control.cu",
+           "none: the simulator's control ticks (sim/vehicle.py)"),
 }
 
 
@@ -449,7 +461,38 @@ def check_kernels(dev) -> dict:
     results["K6b"] = check_predict(dev, g, "K6b", FS2_P, fs2=True,
                                    timed_noise=False)
     results["K1"] = check_k1(dev, rng, g)
+    results["S1"] = check_sim_control(dev, g)
     return results
+
+
+def check_sim_control(dev, g) -> dict:
+    """S1 bit for bit against its twin over the gate's drive at
+    SIM_SUPERSTEPS launches of T = 8, then timed at T = 8 beside the
+    twin (the eager code: ~72 launches a tick). Its bound is the latency
+    of one thread's chain of ticks, read from the device times of the
+    SIM_LONG launches: (their difference per tick) x 8."""
+    from slam_tpu_torch.ops.kernels import vehicle as kv
+    from slam_tpu_torch.runtime.profiling import device_ms
+
+    st = selfcheck.check_sim_control(dev, g, SIM_SUPERSTEPS)
+    sim, vehicle, noise, kw = selfcheck.sim_drive(dev, g, max(SIM_LONG))
+
+    def launch(T):
+        rows = noise[:T]
+        return lambda: kv.control_multi(vehicle, sim.waypoints, rows, **kw)
+    times = measure(launch(T_PREDICT), lambda: kv.control_multi_plain(
+        vehicle, sim.waypoints, noise[:T_PREDICT], **kw))
+    (t_a, ms_a), (t_b, ms_b) = [(T, device_ms(launch(T))) for T in SIM_LONG]
+    tick_ms = (ms_b - ms_a) / (t_b - t_a)
+    print(f"kernel S1 ({st['shape']}): bit-equal to its twin; device ms at "
+          f"T = {t_a}, {t_b}: {ms_a:.5f}, {ms_b:.5f} ({1e3 * tick_ms:.3f} "
+          "us a tick)", flush=True)
+    T = T_PREDICT
+    return dict(max_abs_err=0.0, shape=f"T={T}, the gate's drive of "
+                f"{SIM_SUPERSTEPS} launches", latency_ms=T * tick_ms,
+                long_device_ms={t_a: ms_a, t_b: ms_b},
+                bytes=2 * 25 + T * (8 + 8 + 12 + 16) + 12,
+                ops=OPS_TICK_SIM * T, **times)
 
 
 def check_gathers(dev, g, fs2_L) -> dict:
@@ -1120,7 +1163,7 @@ def run_slice(dev, name, world, kind, P, ticks, anchor, on, off=(),
         for k in off:
             check(counts[k] == 0, f"{name} seed {seed}: {k} should not "
                   f"run {counts}")
-        for k in per_superstep:
+        for k in ("S1", *per_superstep):
             check(counts[k] == T, f"{name} seed {seed}: {k} launched "
                   f"{counts[k]} times in {T} supersteps")
         total = {k: total[k] + counts[k] for k in total}
@@ -1188,7 +1231,7 @@ def run_config5_slice(dev, name, P, capacity, n_supersteps, seeds,
               f"{name} seed {seed}: refined ATE {r.ate_refined} against "
               f"the filter's {r.ate_filter}")
         check(r.ba_iters >= 1, f"{name} seed {seed}: no BA iteration")
-        check(counts["K6"] == n_supersteps
+        check(counts["K6"] == counts["S1"] == n_supersteps
               and counts["K5"] + counts["K4"] == n_supersteps,
               f"{name} seed {seed}: launches {counts} in {n_supersteps} "
               "supersteps")
@@ -1423,8 +1466,9 @@ def on_card(dev, runner, tensors) -> list:
 def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
                   window) -> dict:
     """Phase 7: an EKF slice through Runner, no device named. Each seed
-    runs with syncs raising; none of the nine kernels may launch; the
-    runner, simulator, estimator and final state must be on the card;
+    runs with syncs raising; S1 launches once a superstep and none of
+    the nine estimator kernels; the runner, simulator, estimator and
+    final state must be on the card;
     the RMS ATE over the seeds finite and below twice the JAX anchor.
     Then one run profiled over ``window`` (warm-up, measured supersteps)
     gives the device time per superstep."""
@@ -1438,6 +1482,7 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
     cfg, _ = world
     T = ticks // cfg.steps_per_observe
     ates, rates = [], []
+    total = dict.fromkeys(kernels.WRAPPERS, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for seed in seeds:
@@ -1451,8 +1496,8 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
         check(done[0] == T, f"{name}: {done[0]} of {T} updates ran")
         check(result.host_syncs == 0,
               f"{name} seed {seed}: {result.host_syncs} host syncs")
-        check(not any(counts.values()),
-              f"{name} seed {seed}: kernels launched {counts}")
+        sim_only(f"{name} seed {seed}", counts, T)
+        total = {k: total[k] + counts[k] for k in total}
         away = on_card(dev, runner, [t for t in fs
                                      if isinstance(t, torch.Tensor)])
         check(not away, f"{name}: with no device named the run is not on "
@@ -1475,13 +1520,13 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
     prof = profile_runner(ekf_runner(world, sharded), *window,
                           seed=seeds[0], top=6)
     check(prof["host_syncs_per_superstep"] == 0
-          and not prof["launches_per_superstep"],
+          and prof["launches_per_superstep"] == {"S1": 1.0},
           f"{name}: profiled window {prof['host_syncs_per_superstep']} "
           f"syncs, launches {prof['launches_per_superstep']}")
     summary = dict(seeds=list(seeds), ate_rmse=rms, ates=ates,
                    steps_per_s=rates, host_syncs_per_superstep=0,
-                   launches=dict.fromkeys(kernels.WRAPPERS, 0),
-                   launches_per_superstep={}, ate_bound=ate_bound,
+                   launches=total, launches_per_superstep={"S1": 1.0},
+                   ate_bound=ate_bound,
                    peak_gib=peak, seconds=seconds, profile=prof)
     print(f"slice {name}: {json.dumps(summary)}", flush=True)
     return summary
@@ -1709,6 +1754,14 @@ def edge_slice(counts, run_supersteps, **extra) -> dict:
         k: n / run_supersteps for k, n in counts.items() if n}, **extra)
 
 
+def sim_only(name, counts, n_supersteps) -> None:
+    """A run whose estimator launches no kernel (an EKF): S1, the
+    simulator's control ticks, once a superstep, and nothing else."""
+    check(counts["S1"] == n_supersteps
+          and not any(n for k, n in counts.items() if k != "S1"),
+          f"{name}: launches {counts} in {n_supersteps} supersteps")
+
+
 def check_ckpt_deferred(dev, tmp) -> dict:
     """Phase 12 (k): FastSlam1Deferred on dense200 at P = 131,072, seed
     3, checkpointed: unbroken to superstep 200, then cut at a superstep
@@ -1827,8 +1880,7 @@ def check_ckpt_small(dev, tmp) -> dict:
     fs1 = out["ckpt-fs1"]
     check(fs1["launches"]["K2"] == N and fs1["launches"]["G1"] > 0,
           f"ckpt-fs1: launches {fs1['launches']}")
-    check(not any(out["ckpt-ekf"]["launches"].values()),
-          f"ckpt-ekf: launches {out['ckpt-ekf']['launches']}")
+    sim_only("ckpt-ekf", out["ckpt-ekf"]["launches"], N)
 
     class Flaky(Runner):
         """Fails in its first checkpointed run after the first chunk is
@@ -1986,8 +2038,7 @@ def check_stream(dev) -> dict:
     check(out["stream-fs1"]["launches"]["K2"] == STREAM_SUPERSTEPS
           and out["stream-fs1"]["launches"]["G1"] > 0,
           f"stream-fs1: launches {out['stream-fs1']['launches']}")
-    check(not any(out["stream-ekf"]["launches"].values()),
-          f"stream-ekf: launches {out['stream-ekf']['launches']}")
+    sim_only("stream-ekf", out["stream-ekf"]["launches"], STREAM_SUPERSTEPS)
     return out
 
 
@@ -2358,8 +2409,7 @@ def check_ekf_mesh(dev) -> dict:
         check(done[0] == T and result.host_syncs == 0,
               f"ekf-10k-mesh ({name}): {done[0]} of {T} updates, "
               f"{result.host_syncs} host syncs")
-        check(not any(counts.values()),
-              f"ekf-10k-mesh ({name}): kernels launched {counts}")
+        sim_only(f"ekf-10k-mesh ({name})", counts, T)
         away = on_card(dev, runner, state_tensors(result.final_state))
         check(not away, f"ekf-10k-mesh ({name}): not on {dev}: {away}")
         runs[name] = result
@@ -2377,9 +2427,8 @@ def check_ekf_mesh(dev) -> dict:
     out = dict(ate_rmse=ate, ate_bound=bound_m, n=int(b.final_state.n),
                host_syncs_per_superstep=0, wall_s=walls,
                steps_per_s={k: EKF10K_TICKS / w for k, w in walls.items()},
-               bit_equal_to_no_mesh=True,
-               launches=dict.fromkeys(kernels.WRAPPERS, 0),
-               launches_per_superstep={},
+               bit_equal_to_no_mesh=True, launches=counts,
+               launches_per_superstep={"S1": 1.0},
                seconds=time.perf_counter() - t0)
     print(f"slice ekf-10k-mesh: {json.dumps(out)}", flush=True)
     del runs, a, b
@@ -2488,7 +2537,7 @@ def check_config5_mesh(dev) -> dict:
           f"config5-mesh: refined ATE {r.ate_refined} against the "
           f"filter's {r.ate_filter}")
     check(r.ba_iters >= 1, "config5-mesh: no BA iteration")
-    check(counts["K2"] == n and counts["G1"] > 0,
+    check(counts["K2"] == counts["S1"] == n and counts["G1"] > 0,
           f"config5-mesh: launches {counts} in {n} supersteps")
     for k in ("K4", "K5", "K6", "G2", "K3", "K6b", "K1"):
         check(counts[k] == 0, f"config5-mesh: {k} should not run {counts}")
@@ -2633,8 +2682,9 @@ def check_bench_entry(dev) -> dict:
           and primary["unit"] == "steps/s" and primary["vs_baseline"] is None
           and primary["value"] > 0,
           f"bench: the primary JSON {primary}")
-    check(counts["K2"] == supersteps and counts["G1"] > 0
-          and not any(n for k, n in counts.items() if k not in ("K2", "G1")),
+    check(counts["K2"] == counts["S1"] == supersteps and counts["G1"] > 0
+          and not any(n for k, n in counts.items()
+                      if k not in ("K2", "G1", "S1")),
           f"bench fastslam1_webmap: launches {counts} in {supersteps} "
           "supersteps")
     torch.cuda.empty_cache()
@@ -2692,7 +2742,8 @@ def main() -> int:
     fast_math = check_fast_math(dev)
     sass = sass_counts(lib_path)
     for name, st in kernel_stats.items():
-        b_ms, by = bound(st["bytes"], st["ops"])
+        b_ms, by = (bound(st["bytes"], st["ops"]) if "latency_ms" not in st
+                    else (st["latency_ms"], "latency"))
         st.update(bound_ms=b_ms, bound_by=by, share=b_ms / st["ms"])
         k4_map = ""
         if name.split()[0] == "K4":
@@ -2801,8 +2852,8 @@ def main() -> int:
                        "deferred-large", "fs2-small", "fs2-1m"),
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
     slices.update(c5_points)
-    # The slices that launch none of the nine kernels (ba-10k: checked in
-    # its phase).
+    # The slices that launch none of the nine estimator kernels (ba-10k:
+    # checked in its phase).
     ekf_slices = {"ekf-webmap": ekf_webmap, "ekf-dense200": ekf_dense200,
                   "ekf-10k": ekf_10k}
     slices.update(ekf_slices)
@@ -2828,15 +2879,18 @@ def main() -> int:
               "share", "bytes", "ops", "library_ms", "library_device_ms",
               "shape")
     table = []
-    for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2"):
+    for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2",
+                 "S1"):
         st = kernel_stats[name]
+        # S1 runs in every slice with a simulator, the EKFs' too.
+        zero = (("ba-10k", "ba-10k-mesh") if name == "S1" else ekf_slices)
         row = dict(name=name, route="cuda", source=KERNELS[name][0],
                    replaces=KERNELS[name][1], launches=launches[name],
                    launches_per_superstep={
                        **{sl: s["launches_per_superstep"][name]
                           for sl, s in slices.items()
                           if name in s["launches_per_superstep"]},
-                       **dict.fromkeys(ekf_slices, 0)},
+                       **dict.fromkeys(zero, 0)},
                    max_abs_err=errs[name], **{f: st[f] for f in fields})
         if name == "K2":
             row.update({f: st[f] for f in (
@@ -2856,6 +2910,8 @@ def main() -> int:
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",
                                            "staged_tiles")})
+        if name == "S1":
+            row.update(long_device_ms=st["long_device_ms"])
         if name in sass:
             row.update({f: st[f] for f in ("issue_bound_ms", "issue_share",
                                            "sass", "sm_clock_mhz")},

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the port, with their plain PyTorch
 twins (counterpart: slam_tpu.ops.pallas). Every TPU kernel of the JAX
-package has one:
+package has one, and the simulator has one of its own (S1):
 
 =====  ===========================  ===================================
 id     wrapper                      replaces
@@ -14,6 +14,7 @@ K6     predict.fs1_predict_multi    kernels.py:fs1_predict_multi_tpu
 K6b    predict.fs2_predict_multi    kernels.py:fs2_predict_multi_tpu
 G1     gather.sorted_gather_multi   gather.py:sorted_gather_multi
 G2     gather.bounds_gather_multi   gather.py:bounds_gather_multi
+S1     vehicle.control_multi        (no kernel: the simulator's ticks)
 =====  ===========================  ===================================
 """
 
@@ -32,6 +33,7 @@ from slam_tpu_torch.ops.kernels.predict import (
     fs1_predict_multi,
     fs2_predict_multi,
 )
+from slam_tpu_torch.ops.kernels.vehicle import control_multi
 
 WRAPPERS = {
     "K1": jacobians,
@@ -43,6 +45,7 @@ WRAPPERS = {
     "K6b": fs2_predict_multi,
     "G1": sorted_gather_multi,
     "G2": bounds_gather_multi,
+    "S1": control_multi,
 }
 
 
@@ -56,7 +59,7 @@ def reset_launch_counts() -> None:
         w.launches = 0
 
 
-__all__ = ["WRAPPERS", "bounds_gather_multi", "fs1_predict_multi",
-           "fs2_predict_multi", "fs2_refine", "fused_update", "jacobians",
-           "launch_counts", "observe", "reset_launch_counts",
-           "resample_update", "sorted_gather_multi"]
+__all__ = ["WRAPPERS", "bounds_gather_multi", "control_multi",
+           "fs1_predict_multi", "fs2_predict_multi", "fs2_refine",
+           "fused_update", "jacobians", "launch_counts", "observe",
+           "reset_launch_counts", "resample_update", "sorted_gather_multi"]

@@ -63,6 +63,8 @@ SIGNATURES = {
     "slam_predict_fast_math_sweep": [_P, _P],
     "slam_fs2_refine": [_P] * 9 + [_F] * 3 + [_I] * 2 + [_P] * 2 + [_P],
     "slam_jacobians": [_P] * 6 + [_F] * 3 + [_I] * 2 + [_P] + [_P],
+    "slam_sim_control_multi": ([_P] * 7 + [_F] * 9 + [_I] * 2 + [_P] * 8
+                               + [_P]),
     "slam_sorted_gather": [GatherArrays, _P, _I, _I, _P],
     "slam_bounds_gather": [GatherArrays, _P, _I, _P],
     "slam_gather_max_arrays": [],

@@ -1,4 +1,4 @@
-"""The kernel gate: each of the nine CUDA kernels against its plain
+"""The kernel gate: each of the ten CUDA kernels against its plain
 PyTorch twin, once, on seeded inputs at the shapes the bench lines give
 it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
@@ -7,8 +7,9 @@ it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
 What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
 
-- G1, G2, K6 and K6b bit-equal to their twins (the gathers copy; the
-  predicts keep the twins' operation order);
+- G1, G2, K6, K6b and S1 bit-equal to their twins (the gathers copy;
+  the predicts and the simulator's ticks keep the twins' operation
+  order);
 - K5 bit-equal to G2's gather followed by K4 (the same operation order),
   and within TOL of its twin;
 - K3 at the JAX package's golden tolerances of the refinement (xv rtol
@@ -35,7 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.geometry import wrap_angle
+from slam_tpu_torch.maps import SlamMap, synthetic_map
 from slam_tpu_torch.models.particles import init_particles
 from slam_tpu_torch.models.rbpf import associate_known, new_slots
 from slam_tpu_torch.ops import planes as pk
@@ -44,6 +47,8 @@ from slam_tpu_torch.ops.kernels import gather as kg
 from slam_tpu_torch.ops.kernels import kernels as kk
 from slam_tpu_torch.ops.kernels import launch_counts
 from slam_tpu_torch.ops.kernels import predict as kp
+from slam_tpu_torch.ops.kernels import vehicle as kv
+from slam_tpu_torch.sim.simulator import Simulator
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_REFINE_XV = dict(rtol=1e-4, atol=1e-5)
@@ -53,6 +58,8 @@ Q = [[0.09, 0.0], [0.0, 0.0025]]
 # K5's tile of output columns, as in csrc/resample_update.cu (kTile).
 K5_TILE = 512
 T_PREDICT = 8
+# S1's drive: supersteps of T_PREDICT ticks on the bench's webmap world.
+SIM_SUPERSTEPS = 64
 
 # The shapes the bench lines give the kernels: the fallback world's 9
 # observations and 40 slots (35 landmarks) at P = 100 (fastslam1_webmap,
@@ -312,6 +319,39 @@ def _predict(dev, g, name, P, noise: bool) -> dict:
                 held="bit-equal", max_abs_err=_bit_equal(name, got, want))
 
 
+def sim_drive(dev, g, n_ticks):
+    """S1's inputs on the bench lines' world (``bench.load_workload``'s
+    webmap stand-in, heading unknown), shifted so that the drive starts
+    at waypoint 0 and turns toward the next: (simulator, start vehicle,
+    standard normals [n_ticks, 2], the tick constants)."""
+    world = synthetic_map(35, 17, radius=100.0)
+    shift = world.waypoints[0].copy()
+    world = SlamMap(landmarks=world.landmarks - shift,
+                    waypoints=world.waypoints - shift)
+    sim = Simulator(SlamConfig(SWITCH_HEADING_KNOWN=0), world, device=dev)
+    noise = torch.randn((n_ticks, 2), generator=g, device=dev)
+    return sim, sim.init(seed=3).vehicle, noise, sim.tick_constants()
+
+
+def check_sim_control(dev, g, n_supersteps) -> dict:
+    """S1 superstep by superstep along a drive, each launch against the
+    twin from the same vehicle (the kernel's own state carried on):
+    every output bit for bit."""
+    sim, vehicle, noise, kw = sim_drive(dev, g, n_supersteps * T_PREDICT)
+    for t0 in range(0, noise.shape[0], T_PREDICT):
+        rows = noise[t0:t0 + T_PREDICT]
+        got = kv.control_multi(vehicle, sim.waypoints, rows, **kw)
+        want = kv.control_multi_plain(vehicle, sim.waypoints, rows, **kw)
+        _sync(dev)
+        _bit_equal(f"S1 (tick {t0})", [*got[0], *got[1:]],
+                   [*want[0], *want[1:]])
+        vehicle = got[0]
+    check(int(vehicle.waypoint) > 0, "S1: the drive passed no waypoint")
+    return dict(shape=f"T={T_PREDICT} x {n_supersteps} launches, "
+                      f"{sim.waypoints.shape[0]} waypoints",
+                held="bit-equal", max_abs_err=0.0)
+
+
 def refine_inputs(dev, rng, g, P, K):
     """K3's arguments at K observations, P particles: every fifth
     observation unmatched, its planes those of a landmark at the
@@ -383,7 +423,8 @@ def check_all(device, p_small: int, p_large: int, p_k1: int,
            "K3": _refine(dev, rng, g, p_large, webmap["K"]),
            "K1": _jacobians(dev, rng, g, p_k1, webmap["K"]),
            "K4 config5": _update(dev, rng, g, "K4", p_large, config5),
-           "K5 config5": _resample_update(dev, rng, g, p_large, config5)}
+           "K5 config5": _resample_update(dev, rng, g, p_large, config5),
+           "S1": check_sim_control(dev, g, SIM_SUPERSTEPS)}
     if dev.type == "cuda":
         after = launch_counts()
         idle = [k for k in after if after[k] == before[k]]

@@ -2,10 +2,12 @@
 slam_tpu.runtime.loop, whose superstep is one ``lax.scan`` body).
 
 A superstep is ``steps_per_observe`` control ticks — truth step, noisy
-controls, the estimator's predict, dead-reckoning odometry — then one
-observation and the estimator update. The heading each predict gets is
-the noisy IMU heading for an EKF (``IS_EKF``), the true heading for a
-particle filter. A particle filter with ``predict_multi``
+controls, dead-reckoning odometry, all in one simulator call
+(``Simulator.control_ticks``: one kernel launch on the card) — then the
+estimator's predict of each tick, one observation and the estimator
+update. The heading each predict gets is the noisy IMU heading for an
+EKF (``IS_EKF``), the true heading for a particle filter. A particle
+filter with ``predict_multi``
 (``FastSlam1Deferred``, and ``FastSlam2`` with the heading unknown) at
 a particle count that is a multiple of 1024 predicts all the ticks of a
 superstep in one call after them, as the JAX runner's
@@ -33,7 +35,6 @@ from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap
 from slam_tpu_torch.models import make_estimator, rbpf
 from slam_tpu_torch.sim.simulator import Simulator
-from slam_tpu_torch.sim.vehicle import predict_true_position
 from slam_tpu_torch.spans import span
 
 
@@ -105,50 +106,38 @@ class Runner:
         period = cfg.steps_per_observe
         return max(period, ((idx + period - 1) // period) * period)
 
-    def _control_tick(self, sim_state, dr):
-        """One truth step with its noisy controls, and the dead-reckoning
-        odometry over the superstep so far."""
-        cfg = self.config
-        sim_state, controls = self.sim.control_step(sim_state)
-        dr = predict_true_position(dr, controls.v_noisy, controls.g_noisy,
-                                   cfg.WHEELBASE, cfg.DT_CONTROLS)
-        return sim_state, controls, dr
-
     def _superstep(self, sim_state, est_state, gen):
-        """The control ticks of a superstep, each with its predict:
+        """The control ticks of a superstep, then each tick's predict:
         (sim state, estimator state, odometry)."""
         ekf = getattr(self.est, "IS_EKF", False)
-        dr = torch.zeros(3, dtype=torch.float32, device=self.device)
-        for _ in range(self.config.steps_per_observe):
-            with span("sim.control"):
-                sim_state, controls, dr = self._control_tick(sim_state, dr)
-                # An EKF observes the noisy IMU heading, FastSLAM the
-                # true one.
-                if ekf:
-                    sim_state, phi = self.sim.heading_measurement(sim_state)
-                else:
-                    phi = sim_state.vehicle.pose[2]
+        with span("sim.control"):
+            sim_state, ticks = self.sim.control_ticks(
+                sim_state, self.config.steps_per_observe, imu=ekf)
+            # An EKF observes the noisy IMU heading, FastSLAM the true
+            # one.
+            if ekf:
+                phis = [self.sim.heading_measurement(
+                    _at_pose(sim_state, pose), u)[1]
+                    for pose, u in zip(ticks.poses, ticks.imu_draws)]
+            else:
+                phis = ticks.poses[:, 2].unbind(0)
+        for ctl, phi in zip(ticks.controls, phis):
             with span("filter.predict"):
-                est_state = self.est.predict(est_state, gen,
-                                             controls.v_noisy,
-                                             controls.g_noisy, phi)
-        return sim_state, est_state, dr
+                est_state = self.est.predict(est_state, gen, ctl[0], ctl[1],
+                                             phi)
+        return sim_state, est_state, ticks.odometry
 
     def _superstep_multi(self, sim_state, est_state, gen):
-        """The control ticks run the simulator only and collect the noisy
-        controls as a [T, 2] device tensor; then one ``predict_multi``
-        call advances the particles through every tick."""
-        dr = torch.zeros(3, dtype=torch.float32, device=self.device)
-        vs, gs = [], []
-        for _ in range(self.config.steps_per_observe):
-            with span("sim.control"):
-                sim_state, controls, dr = self._control_tick(sim_state, dr)
-            vs.append(controls.v_noisy)
-            gs.append(controls.g_noisy)
+        """The control ticks of a superstep, then one ``predict_multi``
+        call that advances the particles through every tick on their
+        [T, 2] noisy controls."""
+        with span("sim.control"):
+            sim_state, ticks = self.sim.control_ticks(
+                sim_state, self.config.steps_per_observe)
         with span("filter.predict"):
-            ctl = torch.stack([torch.stack(vs), torch.stack(gs)], dim=1)
-            est_state = self.est.predict_multi(est_state, gen, ctl)
-        return sim_state, est_state, dr
+            est_state = self.est.predict_multi(est_state, gen,
+                                               ticks.controls)
+        return sim_state, est_state, ticks.odometry
 
     def _init(self, seed: int):
         """Build the kernels (on the card), then the run's start: (sim
@@ -314,6 +303,12 @@ class Runner:
         from slam_tpu_torch.runtime.stream import stream_run
         return stream_run(self, seed=seed, n_ticks=n_ticks, plot=plot,
                           sim_name=sim_name)
+
+
+def _at_pose(sim_state, pose):
+    """``sim_state`` with its truth pose replaced by ``pose``."""
+    return sim_state._replace(
+        vehicle=sim_state.vehicle._replace(pose=pose))
 
 
 def to_host(tensors) -> list:

@@ -16,10 +16,12 @@ import torch
 from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap
+from slam_tpu_torch.ops.kernels.vehicle import control_multi
 from slam_tpu_torch.sim.sensors import Observation, observe
 from slam_tpu_torch.sim.vehicle import (
     VehicleState,
     init_vehicle,
+    noisy_controls,
     steer_and_move,
 )
 
@@ -36,6 +38,14 @@ class Controls(NamedTuple):
     g_true: torch.Tensor
     v_noisy: torch.Tensor
     g_noisy: torch.Tensor
+
+
+class ControlTicks(NamedTuple):
+    """The control ticks of one ``Simulator.control_ticks`` call."""
+    controls: torch.Tensor      # [T, 2] noisy (v, g), the estimator's
+    poses: torch.Tensor         # [T, 3] truth pose after each tick
+    odometry: torch.Tensor      # [3] dead reckoning over the T ticks
+    imu_draws: torch.Tensor | None  # [T] heading_measurement's uniforms
 
 
 def _f32_sqrt(v: float) -> float:
@@ -84,12 +94,46 @@ class Simulator:
         elif noise is None:
             noise = torch.randn(2, generator=state.generator,
                                 device=self.device)
-        sv, sg = self._sigma_q
+        v_noisy, g_noisy = noisy_controls(vehicle.steer, noise, cfg.V,
+                                          *self._sigma_q)
         controls = Controls(v_true=cfg.V, g_true=vehicle.steer,
-                            v_noisy=cfg.V + noise[0] * sv,
-                            g_noisy=vehicle.steer + noise[1] * sg)
+                            v_noisy=v_noisy, g_noisy=g_noisy)
         return state._replace(vehicle=vehicle,
                               tick=state.tick + 1), controls
+
+    def tick_constants(self) -> dict:
+        """The configuration's numbers a control tick takes, as
+        ``control_multi``'s keywords."""
+        cfg = self.config
+        return dict(V=cfg.V, wheelbase=cfg.WHEELBASE, dt=cfg.DT_CONTROLS,
+                    at_waypoint=cfg.AT_WAYPOINT, rateg=cfg.RATEG,
+                    maxg=cfg.MAXG, sigma_v=self._sigma_q[0],
+                    sigma_g=self._sigma_q[1])
+
+    def control_ticks(self, state: SimState, n_ticks: int,
+                      imu: bool = False) -> tuple[SimState, ControlTicks]:
+        """``n_ticks`` calls of ``control_step`` in one launch of S1
+        (``ops.kernels.vehicle.control_multi``; its twin on the CPU),
+        with the dead-reckoning odometry over them. The noise is drawn
+        tick by tick from the state's generator before the launch, as
+        ``control_step`` draws it; with ``imu`` each tick's uniform for
+        ``heading_measurement`` follows its normals. A run so draws the
+        stream that ``control_step`` and ``heading_measurement``, called
+        tick by tick, would draw."""
+        cfg = self.config
+        f32 = dict(dtype=torch.float32, device=self.device)
+        noisy = bool(cfg.SWITCH_CONTROL_NOISE)
+        noise = (torch.empty if noisy else torch.zeros)((n_ticks, 2), **f32)
+        draws = torch.empty(n_ticks, **f32) if imu else None
+        for t in range(n_ticks):
+            if noisy:
+                torch.randn(2, generator=state.generator, out=noise[t])
+            if imu:
+                torch.rand((), generator=state.generator, out=draws[t])
+        vehicle, ctl, poses, odometry = control_multi(
+            state.vehicle, self.waypoints, noise, **self.tick_constants())
+        return (state._replace(vehicle=vehicle, tick=state.tick + n_ticks),
+                ControlTicks(ctl, poses, odometry, draws))
 
     def observe_step(self, state: SimState, noise=None
                      ) -> tuple[SimState, Observation]:

@@ -79,6 +79,12 @@ def _update_steering(pose, steer, waypoint, loops, waypoints,
     return new_steer, next_idx, new_loops, done
 
 
+def noisy_controls(steer, noise, V, sigma_v, sigma_g):
+    """The estimator's controls of a tick: (V + n0 sigma_v, steer + n1
+    sigma_g) for the tick's two standard normals ``noise`` [2]."""
+    return V + noise[0] * sigma_v, steer + noise[1] * sigma_g
+
+
 def steer_and_move(state: VehicleState, waypoints, *, V, wheelbase, dt,
                    at_waypoint, rateg, maxg) -> VehicleState:
     """One control tick: chase the waypoint, clamp the steering,

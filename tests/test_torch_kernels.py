@@ -24,6 +24,8 @@ from slam_tpu_torch.ops import kernels as tk
 from slam_tpu_torch.ops.kernels import build
 from slam_tpu_torch.ops.kernels import gather as tgather
 from slam_tpu_torch.ops.kernels import kernels as tkernels
+from slam_tpu_torch.ops.kernels import vehicle as tvehicle
+from slam_tpu_torch.sim.vehicle import init_vehicle
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 R = np.diag([0.01, 0.0003]).astype(np.float32)
@@ -284,9 +286,19 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     for g, w in zip(tk.bounds_gather_multi(arrays, S),
                     tgather.bounds_gather_multi_plain(arrays, S)):
         assert torch.equal(g, w)
+
+    vehicle = init_vehicle(2, "cpu")
+    waypoints = _t(np.array([[2.0, 0.0], [4.0, 1.0]], np.float32))
+    noise = torch.randn((8, 2), generator=torch.Generator().manual_seed(0))
+    kw = dict(V=3.0, wheelbase=4.0, dt=0.025, at_waypoint=1.0, rateg=0.35,
+              maxg=0.52, sigma_v=0.3, sigma_g=0.05)
+    got = tk.control_multi(vehicle, waypoints, noise, **kw)
+    want = tvehicle.control_multi_plain(vehicle, waypoints, noise, **kw)
+    for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(g, w)
     assert tk.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                   "K5": 0, "K6": 0, "K6b": 0, "G1": 0,
-                                  "G2": 0}
+                                  "G2": 0, "S1": 0}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
