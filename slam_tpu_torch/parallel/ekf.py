@@ -28,6 +28,12 @@ With no mesh the one card owns every row and the collectives are the
 identity; a mesh of one rank runs the same operations through
 collectives over a group of one, with the same result bit for bit.
 
+An update records four spans beneath the runner's ``filter.update``
+(``slam_tpu_torch.spans``): ``ekf.associate``, ``ekf.gain``, ``ekf.pmm``
+(the one pass over Pmm) and ``ekf.augment``. ``pmm_passes.count``
+counts every full pass over Pmm: the update's product and each heading
+term that finds no free column in ``hk``.
+
 Writes the JAX package drops (``mode="drop"``) are additions here:
 slots >= n hold exact zeros in x, P0m and Pmm, and every update keeps
 them zero, so adding a new feature's values into them is exact, and a
@@ -36,6 +42,7 @@ masked observation adds zeros.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -70,8 +77,12 @@ from slam_tpu_torch.parallel.mesh import (
     mesh_device,
     psum,
 )
+from slam_tpu_torch.spans import span
 
 LM_AXIS = "l"
+
+# Full passes over Pmm (read and written whole) since the process began.
+pmm_passes = SimpleNamespace(count=0)
 
 
 class ShardedEKFState(NamedTuple):
@@ -216,6 +227,7 @@ def _predict_local(state: ShardedEKFState, v, g, Q, wheelbase, dt, phi,
     # No free column (more predicts per observe than n_defer): this
     # tick's term goes into the owned rows of Pmm now.
     lo = shard.row_lo
+    pmm_passes.count += 1
     state.Pmm.addr_(u[lo:lo + shard.rows], u, alpha=-1.0)
     return state
 
@@ -253,88 +265,96 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     dev = state.x.device
     row_lo, rows = shard.row_lo, shard.rows
 
-    # Deferred heading terms: true Pmm = stored Pmm - hk hk'. The cheap
-    # reads below take the low-rank correction; the subtraction itself
-    # rides the batch update's one pass over Pmm.
-    hk = state.hk[:, :state.hk_n]
-
-    lm = state.x[3:].reshape(L, 2)
-    valid = torch.arange(L, device=dev) < state.n
-    # The diagonal blocks: each shard's own, gathered.
-    Pjj = all_gather_rows(_diag_blocks_local(state.Pmm, row_lo),
-                          shard.group)
-    hk_blk = hk.reshape(L, 2, hk.shape[1])
-    Pjj = Pjj - torch.einsum("lad,lbd->lab", hk_blk, hk_blk)
-
     # ---- association ---------------------------------------------------
-    if association_known:
-        assoc, is_new = known_association(state.da_table, ids, zmask)
-    else:
-        nis, nd = innovation_stats(state.pose, lm, valid, state.P00,
-                                   state.P0m.T.reshape(L, 2, 3), Pjj, z,
-                                   zmask, Re)
-        assoc, is_new = gated_nearest(nis, nd, zmask, gate_reject,
-                                      gate_augment)
-    matched = assoc >= 0
-    slot = torch.where(matched, assoc, 0).long()
+    with span("ekf.associate"):
+        # Deferred heading terms: true Pmm = stored Pmm - hk hk'. The
+        # cheap reads below take the low-rank correction; the
+        # subtraction itself rides the batch update's one pass over Pmm.
+        hk = state.hk[:, :state.hk_n]
+
+        lm = state.x[3:].reshape(L, 2)
+        valid = torch.arange(L, device=dev) < state.n
+        # The diagonal blocks: each shard's own, gathered.
+        Pjj = all_gather_rows(_diag_blocks_local(state.Pmm, row_lo),
+                              shard.group)
+        hk_blk = hk.reshape(L, 2, hk.shape[1])
+        Pjj = Pjj - torch.einsum("lad,lbd->lab", hk_blk, hk_blk)
+
+        if association_known:
+            assoc, is_new = known_association(state.da_table, ids, zmask)
+        else:
+            nis, nd = innovation_stats(state.pose, lm, valid, state.P00,
+                                       state.P0m.T.reshape(L, 2, 3), Pjj,
+                                       z, zmask, Re)
+            assoc, is_new = gated_nearest(nis, nd, zmask, gate_reject,
+                                          gate_augment)
 
     # ---- batch update --------------------------------------------------
-    zp, Hv, Hf, _ = compute_jacobians(state.pose, lm[slot], Pjj[slot], R)
-    Hv = torch.where(matched[:, None, None], Hv, 0.0)
-    Hf = torch.where(matched[:, None, None], Hf, 0.0)
-    Hp = Hv.reshape(2 * K, 3)                                # [2K, 3]
-    # H = [Hp | Hm], where Hm's row pair k holds Hf_k at the columns
-    # gcol[2k : 2k + 2] of the matched landmark. Products with Hm are
-    # gathers of those columns (two nonzeros a row: the same sums).
-    gcol = (2 * slot[:, None] + torch.arange(2, device=dev)).reshape(-1)
+    with span("ekf.gain"):
+        matched = assoc >= 0
+        slot = torch.where(matched, assoc, 0).long()
+        zp, Hv, Hf, _ = compute_jacobians(state.pose, lm[slot], Pjj[slot],
+                                          R)
+        Hv = torch.where(matched[:, None, None], Hv, 0.0)
+        Hf = torch.where(matched[:, None, None], Hf, 0.0)
+        Hp = Hv.reshape(2 * K, 3)                            # [2K, 3]
+        # H = [Hp | Hm], where Hm's row pair k holds Hf_k at the columns
+        # gcol[2k : 2k + 2] of the matched landmark. Products with Hm are
+        # gathers of those columns (two nonzeros a row: the same sums).
+        gcol = (2 * slot[:, None] + torch.arange(2, device=dev)).reshape(-1)
 
-    v = torch.where(matched[:, None], innovation(z, zp), 0.0).reshape(2 * K)
+        v = torch.where(matched[:, None], innovation(z, zp),
+                        0.0).reshape(2 * K)
 
-    # PHt pose rows [3, 2K]: P00 Hp' + P0m Hm'.
-    P0m_obs = state.P0m[:, gcol].reshape(3, K, 2)
-    PHt_p = state.P00 @ Hp.T + torch.einsum(
-        "ckb,kab->cka", P0m_obs, Hf).reshape(3, 2 * K)
-    # PHt landmark rows: Pm0 Hp' + Pmm Hm'. By symmetry Pmm Hm' needs
-    # only Pmm's observed rows, with the deferred correction; each row
-    # has one owner, so their sum over the shards is exact.
-    obs_rows = psum(_owned_rows(state.Pmm, gcol, row_lo), shard.group)
-    obs_rows = obs_rows - hk[gcol] @ hk.T                    # [2K, 2L]
-    HmP = torch.einsum("kab,kbn->kan", Hf, obs_rows.reshape(K, 2, N2)
-                       ).reshape(2 * K, N2)
-    PHt_m_loc = (state.P0m[:, row_lo:row_lo + rows].T @ Hp.T
-                 + HmP[:, row_lo:row_lo + rows].T)           # [rows, 2K]
+        # PHt pose rows [3, 2K]: P00 Hp' + P0m Hm'.
+        P0m_obs = state.P0m[:, gcol].reshape(3, K, 2)
+        PHt_p = state.P00 @ Hp.T + torch.einsum(
+            "ckb,kab->cka", P0m_obs, Hf).reshape(3, 2 * K)
+        # PHt landmark rows: Pm0 Hp' + Pmm Hm'. By symmetry Pmm Hm' needs
+        # only Pmm's observed rows, with the deferred correction; each
+        # row has one owner, so their sum over the shards is exact.
+        obs_rows = psum(_owned_rows(state.Pmm, gcol, row_lo), shard.group)
+        obs_rows = obs_rows - hk[gcol] @ hk.T                # [2K, 2L]
+        HmP = torch.einsum("kab,kbn->kan", Hf, obs_rows.reshape(K, 2, N2)
+                           ).reshape(2 * K, N2)
+        PHt_m_loc = (state.P0m[:, row_lo:row_lo + rows].T @ Hp.T
+                     + HmP[:, row_lo:row_lo + rows].T)       # [rows, 2K]
 
-    # S = H P H' + R; the landmark contraction is a sum over shards.
-    HmPHt = psum(torch.einsum(
-        "kab,kbc->kac", Hf,
-        _owned_rows(PHt_m_loc, gcol, row_lo).reshape(K, 2, 2 * K)),
-        shard.group)
-    S = Hp @ PHt_p + HmPHt.reshape(2 * K, 2 * K)
-    RR = torch.kron(torch.eye(K, dtype=S.dtype, device=dev), R)
-    S = 0.5 * (S + S.T) + RR
-    S = S + 1e-6 * torch.trace(S) / (2 * K) * torch.eye(
-        2 * K, dtype=S.dtype, device=dev)
+        # S = H P H' + R; the landmark contraction is a sum over shards.
+        HmPHt = psum(torch.einsum(
+            "kab,kbc->kac", Hf,
+            _owned_rows(PHt_m_loc, gcol, row_lo).reshape(K, 2, 2 * K)),
+            shard.group)
+        S = Hp @ PHt_p + HmPHt.reshape(2 * K, 2 * K)
+        RR = torch.kron(torch.eye(K, dtype=S.dtype, device=dev), R)
+        S = 0.5 * (S + S.T) + RR
+        S = S + 1e-6 * torch.trace(S) / (2 * K) * torch.eye(
+            2 * K, dtype=S.dtype, device=dev)
 
-    Lc = cholesky_lower(S)
-    # W1 = PHt L^-T ; P -= W1 W1' ; x += PHt S^-1 v.
-    W1_p = solve_lower(Lc, PHt_p.T).T                        # [3, 2K]
-    W1_m_loc = solve_lower(Lc, PHt_m_loc.T).T                # [rows, 2K]
-    W1_m = all_gather_rows(W1_m_loc, shard.group)            # [2L, 2K]
-    sv = solve_lower(Lc, v)
-    x = state.x + torch.cat([W1_p @ sv, W1_m @ sv])
-    x[2] = wrap_angle(x[2])
+        Lc = cholesky_lower(S)
+        # W1 = PHt L^-T ; P -= W1 W1' ; x += PHt S^-1 v.
+        W1_p = solve_lower(Lc, PHt_p.T).T                    # [3, 2K]
+        W1_m_loc = solve_lower(Lc, PHt_m_loc.T).T            # [rows, 2K]
+        W1_m = all_gather_rows(W1_m_loc, shard.group)        # [2L, 2K]
+        sv = solve_lower(Lc, v)
+        x = state.x + torch.cat([W1_p @ sv, W1_m @ sv])
+        x[2] = wrap_angle(x[2])
 
-    P00 = state.P00 - W1_p @ W1_p.T
-    P0m = state.P0m - W1_p @ W1_m.T
-    # The one pass over Pmm: the batch update and the deferred heading
-    # terms, Pmm -= [W1_m | hk] [W1_m | hk]', in place.
-    W = torch.cat([W1_m, hk], 1)                             # [2L, 2K + D]
-    Pmm = state.Pmm.addmm_(W[row_lo:row_lo + rows], W.T, alpha=-1.0)
-    state = state._replace(x=x, P00=0.5 * (P00 + P00.T), P0m=P0m, Pmm=Pmm,
-                           hk=state.hk.zero_(), hk_n=0)
+        P00 = state.P00 - W1_p @ W1_p.T
+        P0m = state.P0m - W1_p @ W1_m.T
+
+    with span("ekf.pmm"):
+        # The one pass over Pmm: the batch update and the deferred
+        # heading terms, Pmm -= [W1_m | hk] [W1_m | hk]', in place.
+        pmm_passes.count += 1
+        W = torch.cat([W1_m, hk], 1)                         # [2L, 2K + D]
+        Pmm = state.Pmm.addmm_(W[row_lo:row_lo + rows], W.T, alpha=-1.0)
+        state = state._replace(x=x, P00=0.5 * (P00 + P00.T), P0m=P0m,
+                               Pmm=Pmm, hk=state.hk.zero_(), hk_n=0)
 
     # ---- augment -------------------------------------------------------
-    return _augment_local(state, z, ids, is_new, Re, shard)
+    with span("ekf.augment"):
+        return _augment_local(state, z, ids, is_new, Re, shard)
 
 
 def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
