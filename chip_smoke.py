@@ -33,7 +33,12 @@ Phases, in order; any failure raises and exits non-zero:
    takes more than one launch; K3 (K=15, P=2^20) with matched and unmatched
    slots; K1 (K=15, P=2^20); S1, the simulator's control ticks, over a
    4000-tick drive of the webmap world (500 launches of T=8) and timed
-   at T=8, its latency from its device times at T=64 and T=256.
+   at T=8, its latency from its device times at T=64 and T=256; E1, the
+   block EKF's predict tick, at ekf-10k's shapes (L=10,000, D=16) on
+   both arms of the heading against its twin run in float64 (each
+   output's error at most twice the eager float32 code's), timed beside
+   the twin (the eager code, ~77 launches), with its wrapper's host time
+   a call and the estimator's whole predict call by the host clock.
    Gathers, K6, K6b and S1 must be bit-equal to their twins (the
    predicts and S1 keep the twins' operation order, and the sweep below
    holds the predicts' sincosf and the fast wrap to sinf, cosf and the
@@ -113,7 +118,8 @@ Phases, in order; any failure raises and exits non-zero:
        covariance), 640 ticks, seeds 3, 4, 5.
    Each runs its supersteps with torch.cuda.set_sync_debug_mode("error")
    (any host sync raises) and RunResult.host_syncs 0, launches none of
-   the nine estimator kernels (S1 once per superstep), leaves the
+   the nine estimator kernels (S1 once per superstep; E1, in (i) alone,
+   once per tick), leaves the
    runner, simulator, estimator and final state on the card, and must
    reach an RMS ATE below twice the JAX
    package's (JAX_EKF_*_ATE_M); one more run is profiled over a window
@@ -318,6 +324,8 @@ OPS_TICK_FS1 = 19    # K6's bicycle step, per (tick, p)
 OPS_NOISE = 120      # Philox4x32-10 (98) and Box-Muller (22), per (tick, p)
 OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
 OPS_TICK_SIM = 70    # S1's steering, truth, controls and odometry, a tick
+OPS_COLUMN_E1 = 26   # E1's heading arm per map column (in double)
+OPS_CHAIN_E1 = 300   # E1's 3x3 chain, once a block
 # S1's drives: the 4000-tick webmap drive of its card test, T = 8 a
 # launch; and the long launches whose device times give its latency.
 SIM_SUPERSTEPS, SIM_LONG = 500, (64, 256)
@@ -363,6 +371,9 @@ KERNELS = {
             "slam_tpu/ops/pallas/kernels.py:703"),
     "S1": ("slam_tpu_torch/csrc/sim_control.cu",
            "none: the simulator's control ticks (sim/vehicle.py)"),
+    "E1": ("slam_tpu_torch/csrc/ekf_predict.cu",
+           "none: the block EKF's predict tick (parallel/ekf.py; XLA's in "
+           "the JAX package)"),
 }
 
 
@@ -462,7 +473,69 @@ def check_kernels(dev) -> dict:
                                    timed_noise=False)
     results["K1"] = check_k1(dev, rng, g)
     results["S1"] = check_sim_control(dev, g)
+    results["E1"] = check_ekf_predict(dev, g)
     return results
+
+
+def host_us(fn, iters: int = 500) -> float:
+    """Microseconds of the host's clock per call of ``fn``, over ``iters``
+    back-to-back calls after a warm-up, the device synced before and
+    after (not inside: the enqueue is what is timed)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / iters
+
+
+def check_ekf_predict(dev, g) -> dict:
+    """E1 at ekf-10k's shapes on both arms against the float64 twin
+    (selfcheck.check_ekf_predict: each output within twice the eager
+    float32 code's error), then timed on the heading arm, 15 of the 16
+    columns used (the tick writes the last), beside its twin (the eager
+    code on the card); its wrapper's host time a call, and that of the
+    estimator's whole predict (ShardedEkfSlam.predict, as Runner calls
+    it once a tick), by the host clock."""
+    from slam_tpu_torch.config import SlamConfig
+    from slam_tpu_torch.models.ekf import full_f32
+    from slam_tpu_torch.ops.kernels import ekf as ke
+    from slam_tpu_torch.parallel import ekf as pe
+
+    L, D = selfcheck.EKF10K["L"], selfcheck.EKF10K["D"]
+    st = selfcheck.check_ekf_predict(dev, g, L, D)
+    state, (v, gg, phi), Q, kw, shard = selfcheck.ekf_predict_case(
+        dev, g, L, D, D - 1)
+
+    def kernel():
+        ke.ekf_predict_tick(state.x, state.P00, state.P0m, state.hk, D - 1,
+                            v, gg, phi, Q, heading_known=True, **kw)
+
+    def plain():
+        with full_f32():
+            pe._predict_local_plain(state, v, gg, Q, kw["wheelbase"],
+                                    kw["dt"], phi, kw["sigma_phi"], True,
+                                    shard)
+    est = pe.ShardedEkfSlam(SlamConfig(max_landmarks=L), L, device=dev)
+    times = measure(kernel, plain)
+    wrapper_us = host_us(kernel)
+    predict_us = host_us(lambda: est.predict(state, None, v, gg, phi))
+    print(f"kernel E1 (L={L}, D={D}): errors against the float64 twin "
+          f"{json.dumps(st['errors'])}; wrapper {wrapper_us:.1f} us a call "
+          f"on the host, ShardedEkfSlam.predict {predict_us:.1f} us",
+          flush=True)
+    L2 = 2 * L
+    nbytes = (2 * 4 * (3 + L2) + 2 * 36 + 2 * 4 * 3 * L2 + 4 * L2 + 16
+              + 3 * 4)
+    return dict(max_abs_err=st["max_abs_err"], shape=f"L={L}, D={D}, "
+                "heading observed", bytes=nbytes,
+                ops=OPS_COLUMN_E1 * L2 + OPS_CHAIN_E1, errors=st["errors"],
+                wrapper_host_us=wrapper_us, predict_host_us=predict_us,
+                **times)
 
 
 def check_sim_control(dev, g) -> dict:
@@ -1466,8 +1539,9 @@ def on_card(dev, runner, tensors) -> list:
 def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
                   window) -> dict:
     """Phase 7: an EKF slice through Runner, no device named. Each seed
-    runs with syncs raising; S1 launches once a superstep and none of
-    the nine estimator kernels; the runner, simulator, estimator and
+    runs with syncs raising; S1 launches once a superstep, E1 once a
+    tick of the block EKF (``sharded``), and none of the nine estimator
+    kernels; the runner, simulator, estimator and
     final state must be on the card;
     the RMS ATE over the seeds finite and below twice the JAX anchor.
     Then one run profiled over ``window`` (warm-up, measured supersteps)
@@ -1481,6 +1555,9 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
 
     cfg, _ = world
     T = ticks // cfg.steps_per_observe
+    # E1 runs the block EKF's predict, once a tick.
+    e1 = cfg.steps_per_observe if sharded else 0
+    per_superstep = {"S1": 1.0, **({"E1": float(e1)} if e1 else {})}
     ates, rates = [], []
     total = dict.fromkeys(kernels.WRAPPERS, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1496,7 +1573,7 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
         check(done[0] == T, f"{name}: {done[0]} of {T} updates ran")
         check(result.host_syncs == 0,
               f"{name} seed {seed}: {result.host_syncs} host syncs")
-        sim_only(f"{name} seed {seed}", counts, T)
+        ekf_launches(f"{name} seed {seed}", counts, T, e1=e1 * T)
         total = {k: total[k] + counts[k] for k in total}
         away = on_card(dev, runner, [t for t in fs
                                      if isinstance(t, torch.Tensor)])
@@ -1520,12 +1597,12 @@ def run_ekf_slice(dev, name, world, sharded, ticks, seeds, anchor,
     prof = profile_runner(ekf_runner(world, sharded), *window,
                           seed=seeds[0], top=6)
     check(prof["host_syncs_per_superstep"] == 0
-          and prof["launches_per_superstep"] == {"S1": 1.0},
+          and prof["launches_per_superstep"] == per_superstep,
           f"{name}: profiled window {prof['host_syncs_per_superstep']} "
           f"syncs, launches {prof['launches_per_superstep']}")
     summary = dict(seeds=list(seeds), ate_rmse=rms, ates=ates,
                    steps_per_s=rates, host_syncs_per_superstep=0,
-                   launches=total, launches_per_superstep={"S1": 1.0},
+                   launches=total, launches_per_superstep=per_superstep,
                    ate_bound=ate_bound,
                    peak_gib=peak, seconds=seconds, profile=prof)
     print(f"slice {name}: {json.dumps(summary)}", flush=True)
@@ -1754,11 +1831,12 @@ def edge_slice(counts, run_supersteps, **extra) -> dict:
         k: n / run_supersteps for k, n in counts.items() if n}, **extra)
 
 
-def sim_only(name, counts, n_supersteps) -> None:
-    """A run whose estimator launches no kernel (an EKF): S1, the
-    simulator's control ticks, once a superstep, and nothing else."""
-    check(counts["S1"] == n_supersteps
-          and not any(n for k, n in counts.items() if k != "S1"),
+def ekf_launches(name, counts, n_supersteps, e1: int = 0) -> None:
+    """A run of an EKF: S1, the simulator's control ticks, once a
+    superstep, E1 ``e1`` times (the block EKF's predict, once a tick;
+    the dense EKF launches none), and nothing else."""
+    check(counts["S1"] == n_supersteps and counts["E1"] == e1
+          and not any(n for k, n in counts.items() if k not in ("S1", "E1")),
           f"{name}: launches {counts} in {n_supersteps} supersteps")
 
 
@@ -1880,7 +1958,7 @@ def check_ckpt_small(dev, tmp) -> dict:
     fs1 = out["ckpt-fs1"]
     check(fs1["launches"]["K2"] == N and fs1["launches"]["G1"] > 0,
           f"ckpt-fs1: launches {fs1['launches']}")
-    sim_only("ckpt-ekf", out["ckpt-ekf"]["launches"], N)
+    ekf_launches("ckpt-ekf", out["ckpt-ekf"]["launches"], N)
 
     class Flaky(Runner):
         """Fails in its first checkpointed run after the first chunk is
@@ -2038,7 +2116,8 @@ def check_stream(dev) -> dict:
     check(out["stream-fs1"]["launches"]["K2"] == STREAM_SUPERSTEPS
           and out["stream-fs1"]["launches"]["G1"] > 0,
           f"stream-fs1: launches {out['stream-fs1']['launches']}")
-    sim_only("stream-ekf", out["stream-ekf"]["launches"], STREAM_SUPERSTEPS)
+    ekf_launches("stream-ekf", out["stream-ekf"]["launches"],
+                 STREAM_SUPERSTEPS)
     return out
 
 
@@ -2385,7 +2464,7 @@ def check_ekf_mesh(dev) -> dict:
     """Phase 17 (r) ekf-10k-mesh: ShardedEkfSlam on make_mesh(1,
     axis="l") on (i)'s world, 640 ticks, seed 3, through Runner with no
     device named, and the same run with no mesh: 0 host syncs under
-    set_sync_debug_mode("error"), no kernel launched; est_pose and the
+    set_sync_debug_mode("error"), S1 and E1 alone launched; est_pose and the
     final state bit-equal; the ATE below twice JAX_EKF_10K_ATE_M."""
     import numpy as np
     import torch
@@ -2409,7 +2488,8 @@ def check_ekf_mesh(dev) -> dict:
         check(done[0] == T and result.host_syncs == 0,
               f"ekf-10k-mesh ({name}): {done[0]} of {T} updates, "
               f"{result.host_syncs} host syncs")
-        sim_only(f"ekf-10k-mesh ({name})", counts, T)
+        ekf_launches(f"ekf-10k-mesh ({name})", counts, T,
+                     e1=EKF10K_TICKS)
         away = on_card(dev, runner, state_tensors(result.final_state))
         check(not away, f"ekf-10k-mesh ({name}): not on {dev}: {away}")
         runs[name] = result
@@ -2428,7 +2508,8 @@ def check_ekf_mesh(dev) -> dict:
                host_syncs_per_superstep=0, wall_s=walls,
                steps_per_s={k: EKF10K_TICKS / w for k, w in walls.items()},
                bit_equal_to_no_mesh=True, launches=counts,
-               launches_per_superstep={"S1": 1.0},
+               launches_per_superstep={
+                   "S1": 1.0, "E1": float(cfg.steps_per_observe)},
                seconds=time.perf_counter() - t0)
     print(f"slice ekf-10k-mesh: {json.dumps(out)}", flush=True)
     del runs, a, b
@@ -2853,7 +2934,7 @@ def main() -> int:
                       (small, large, c5, deferred, fs2_small, fs2_1m)))
     slices.update(c5_points)
     # The slices that launch none of the nine estimator kernels (ba-10k:
-    # checked in its phase).
+    # checked in its phase); of them, E1 runs in those of the block EKF.
     ekf_slices = {"ekf-webmap": ekf_webmap, "ekf-dense200": ekf_dense200,
                   "ekf-10k": ekf_10k}
     slices.update(ekf_slices)
@@ -2869,6 +2950,7 @@ def main() -> int:
     slices.update(bench_entry)
     ekf_slices.update({"ckpt-ekf": None, "stream-ekf": None,
                        "ekf-10k-mesh": None, "ba-10k-mesh": None})
+    no_e1 = [k for k in ekf_slices if k not in ("ekf-10k", "ekf-10k-mesh")]
     launches = {k: sum(s["launches"][k] for s in slices.values())
                 for k in KERNELS}
     errs = {k: max(st["max_abs_err"] for n, st in kernel_stats.items()
@@ -2880,10 +2962,12 @@ def main() -> int:
               "shape")
     table = []
     for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2",
-                 "S1"):
+                 "S1", "E1"):
         st = kernel_stats[name]
-        # S1 runs in every slice with a simulator, the EKFs' too.
-        zero = (("ba-10k", "ba-10k-mesh") if name == "S1" else ekf_slices)
+        # S1 runs in every slice with a simulator, the EKFs' too; E1 in
+        # the block EKF's.
+        zero = {"S1": ("ba-10k", "ba-10k-mesh"),
+                "E1": no_e1}.get(name, ekf_slices)
         row = dict(name=name, route="cuda", source=KERNELS[name][0],
                    replaces=KERNELS[name][1], launches=launches[name],
                    launches_per_superstep={
@@ -2912,6 +2996,9 @@ def main() -> int:
                                            "staged_tiles")})
         if name == "S1":
             row.update(long_device_ms=st["long_device_ms"])
+        if name == "E1":
+            row.update({f: st[f] for f in ("wrapper_host_us",
+                                           "predict_host_us", "errors")})
         if name in sass:
             row.update({f: st[f] for f in ("issue_bound_ms", "issue_share",
                                            "sass", "sm_clock_mhz")},

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port, with their plain PyTorch
 twins (counterpart: slam_tpu.ops.pallas). Every TPU kernel of the JAX
-package has one, and the simulator has one of its own (S1):
+package has one; the simulator (S1) and the block EKF (E1) have their
+own:
 
 =====  ===========================  ===================================
 id     wrapper                      replaces
@@ -15,9 +16,11 @@ K6b    predict.fs2_predict_multi    kernels.py:fs2_predict_multi_tpu
 G1     gather.sorted_gather_multi   gather.py:sorted_gather_multi
 G2     gather.bounds_gather_multi   gather.py:bounds_gather_multi
 S1     vehicle.control_multi        (no kernel: the simulator's ticks)
+E1     ekf.ekf_predict_tick         (no kernel: the block EKF's predict)
 =====  ===========================  ===================================
 """
 
+from slam_tpu_torch.ops.kernels.ekf import ekf_predict_tick
 from slam_tpu_torch.ops.kernels.gather import (
     bounds_gather_multi,
     sorted_gather_multi,
@@ -46,6 +49,7 @@ WRAPPERS = {
     "G1": sorted_gather_multi,
     "G2": bounds_gather_multi,
     "S1": control_multi,
+    "E1": ekf_predict_tick,
 }
 
 
@@ -60,6 +64,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "bounds_gather_multi", "control_multi",
-           "fs1_predict_multi", "fs2_predict_multi", "fs2_refine",
+           "ekf_predict_tick", "fs1_predict_multi", "fs2_predict_multi", "fs2_refine",
            "fused_update", "jacobians", "launch_counts", "observe",
            "reset_launch_counts", "resample_update", "sorted_gather_multi"]

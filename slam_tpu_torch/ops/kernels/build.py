@@ -52,6 +52,7 @@ class GatherArrays(ctypes.Structure):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signature of every exported launcher; each returns cudaGetLastError().
 SIGNATURES = {
     "slam_fs1_observe": [_P] * 9 + [_F] * 3 + [_I] * 3 + [_P],
@@ -65,6 +66,7 @@ SIGNATURES = {
     "slam_jacobians": [_P] * 6 + [_F] * 3 + [_I] * 2 + [_P] + [_P],
     "slam_sim_control_multi": ([_P] * 7 + [_F] * 9 + [_I] * 2 + [_P] * 8
                                + [_P]),
+    "slam_ekf_predict": [_P] * 7 + [_D] * 3 + [_I] * 2 + [_P] * 4 + [_I, _P],
     "slam_sorted_gather": [GatherArrays, _P, _I, _I, _P],
     "slam_bounds_gather": [GatherArrays, _P, _I, _P],
     "slam_gather_max_arrays": [],

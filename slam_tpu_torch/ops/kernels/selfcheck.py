@@ -1,4 +1,4 @@
-"""The kernel gate: each of the ten CUDA kernels against its plain
+"""The kernel gate: each of the eleven CUDA kernels against its plain
 PyTorch twin, once, on seeded inputs at the shapes the bench lines give
 it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
@@ -18,6 +18,10 @@ What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
 - K1, K2 and K4 within TOL, rtol 1e-5 and atol 1e-5: they sum over k in
   another order than the twins, and the device's libm rounds sin, cos
   and log differently from torch's;
+- E1 against its twin run in float64: its error on each output at most
+  twice the eager float32 code's (the twin on float32), on both arms of
+  the heading; the eager code's products go to cuBLAS, which may fuse
+  multiply-adds, so no operation order is the kernel's;
 - headings (and K1's bearings) compared wrapped: one ulp at +-pi flips a
   wrapped value by 2 pi.
 
@@ -39,6 +43,7 @@ import torch
 from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.maps import SlamMap, synthetic_map
+from slam_tpu_torch.models.ekf import full_f32, noise_matrices
 from slam_tpu_torch.models.particles import init_particles
 from slam_tpu_torch.models.rbpf import associate_known, new_slots
 from slam_tpu_torch.ops import planes as pk
@@ -48,6 +53,7 @@ from slam_tpu_torch.ops.kernels import kernels as kk
 from slam_tpu_torch.ops.kernels import launch_counts
 from slam_tpu_torch.ops.kernels import predict as kp
 from slam_tpu_torch.ops.kernels import vehicle as kv
+from slam_tpu_torch.parallel import ekf as pe
 from slam_tpu_torch.sim.simulator import Simulator
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -60,6 +66,11 @@ K5_TILE = 512
 T_PREDICT = 8
 # S1's drive: supersteps of T_PREDICT ticks on the bench's webmap world.
 SIM_SUPERSTEPS = 64
+# E1 at ekf10k's shapes: 10,000 slots, 16 deferred heading columns.
+EKF10K = dict(L=10_000, D=16)
+# E1's error on each output against the float64 twin, over the eager
+# float32 code's.
+E1_ERR_RATIO = 2.0
 
 # The shapes the bench lines give the kernels: the fallback world's 9
 # observations and 40 slots (35 landmarks) at P = 100 (fastslam1_webmap,
@@ -352,6 +363,109 @@ def check_sim_control(dev, g, n_supersteps) -> dict:
                 held="bit-equal", max_abs_err=0.0)
 
 
+def ekf_predict_case(dev, g, L, D, hk_n, *, heading=2.9, pmm_rows=0):
+    """E1's inputs at L slots: a ``parallel.ekf.ShardedEKFState`` with the
+    pose ~400 m from the origin (as ekf10k's mapped start) at ``heading``,
+    landmarks up to 400 m off, a random pose block and cross rows at the
+    scale of a mapped filter's, ``hk_n`` of hk's D columns used, and
+    ``pmm_rows`` rows of Pmm (zeros; only a tick that finds hk full reads
+    it); then the tick's 0-d (v, g, phi) on ``dev``, Q, the
+    configuration's numbers and the shard (one rank, all rows)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    L2 = 2 * L
+    x = torch.empty(3 + L2, **f32)
+    x[:3] = torch.tensor([380.0, -120.0, heading])
+    x[3:] = 400.0 * (2.0 * torch.rand(L2, generator=g, **f32) - 1.0)
+    B = 0.1 * torch.randn((3, 3), generator=g, **f32)
+    P00 = B @ B.T + 1e-3 * torch.eye(3, **f32)
+    hk = torch.zeros((L2, D), **f32)
+    hk[:, :hk_n] = 0.01 * torch.randn((L2, hk_n), generator=g, **f32)
+    state = pe.ShardedEKFState(
+        x=x, P00=P00, P0m=0.01 * torch.randn((3, L2), generator=g, **f32),
+        Pmm=torch.zeros((pmm_rows, L2), **f32),
+        n=torch.tensor(L, dtype=torch.int32, device=dev),
+        da_table=torch.arange(L, dtype=torch.int32, device=dev), hk=hk,
+        hk_n=hk_n)
+    u = torch.randn(3, generator=g, **f32)
+    ticks = (3.0 + 0.3 * u[0], 0.2 * u[1],
+             torch.remainder(heading + 0.02 * u[2] + torch.pi, 2 * torch.pi)
+             - torch.pi)
+    cfg = SlamConfig()
+    Q = noise_matrices(cfg, dev)[0]
+    kw = dict(wheelbase=cfg.WHEELBASE, dt=cfg.DT_CONTROLS,
+              sigma_phi=cfg.sigmaT)
+    return state, ticks, Q, kw, pe.Shard(row_lo=0, rows=pmm_rows)
+
+
+def _ekf_outputs(state) -> dict:
+    """The outputs of a tick, float64: pose, the map's means, P00, P0m,
+    hk and Pmm."""
+    return dict(pose=state.x[:3].double(), map=state.x[3:].double(),
+                P00=state.P00.double(), P0m=state.P0m.double(),
+                hk=state.hk.double(), Pmm=state.Pmm.double())
+
+
+def ekf_predict_errors(state, ticks, Q, kw, heading_known, shard) -> dict:
+    """One tick from ``state`` by E1 (``parallel.ekf._predict_local``: the
+    twin on the CPU), by the eager float32 code (``_predict_local_plain``)
+    and by the twin in float64: per output, the largest error of E1 and
+    of the eager code against the float64 twin (headings wrapped), and
+    E1's largest distance to the eager code. Each run gets its own copy
+    of the state (hk and Pmm are written in place)."""
+    def fresh(dtype):
+        return state._replace(**{f: getattr(state, f).to(dtype, copy=True)
+                                 for f in ("x", "P00", "P0m", "Pmm", "hk")})
+    args = (kw["wheelbase"], kw["dt"])
+    with full_f32():
+        got = pe._predict_local(fresh(torch.float32), *ticks[:2], Q, *args,
+                                ticks[2], kw["sigma_phi"], heading_known,
+                                shard)
+        eager = pe._predict_local_plain(
+            fresh(torch.float32), *ticks[:2], Q, *args, ticks[2],
+            kw["sigma_phi"], heading_known, shard)
+        t64 = [t.double() for t in ticks]
+        want = pe._predict_local_plain(
+            fresh(torch.float64), *t64[:2], Q.double(), *args, t64[2],
+            kw["sigma_phi"], heading_known, shard)
+    check(got.hk_n == eager.hk_n == want.hk_n, "E1: hk_n differs from "
+          f"the twin's: {got.hk_n}, {eager.hk_n}, {want.hk_n}")
+    out = {}
+    runs = [_ekf_outputs(s) for s in (got, eager, want)]
+    for name in runs[0]:
+        a, b, w = (r[name] for r in runs)
+        if a.numel() == 0:
+            continue
+        if name == "pose":
+            a, b, w = [torch.cat([t[:2], wrap_angle(t[2:] - w[2:])])
+                       for t in (a, b, w)]
+        check(bool(torch.isfinite(a).all()), f"E1: non-finite {name}")
+        out[name] = dict(e1=float((a - w).abs().max()),
+                         eager=float((b - w).abs().max()),
+                         diff=float((a - b).abs().max()))
+    return out
+
+
+def check_ekf_predict(dev, g, L, D) -> dict:
+    """E1 at L slots on both arms of the heading (observed: 15 of the 16
+    columns used, so the tick writes the last; not observed: none used)
+    against the float64 twin: each output's error at most E1_ERR_RATIO
+    times the eager float32 code's."""
+    err, cases = 0.0, {}
+    for heading_known, hk_n in ((True, D - 1), (False, 0)):
+        state, ticks, Q, kw, shard = ekf_predict_case(dev, g, L, D, hk_n)
+        gaps = ekf_predict_errors(state, ticks, Q, kw, heading_known, shard)
+        _sync(dev)
+        for name, e in gaps.items():
+            check(e["e1"] <= E1_ERR_RATIO * e["eager"],
+                  f"E1 ({'heading' if heading_known else 'no heading'}) "
+                  f"{name}: error {e['e1']:.3g} against the float64 twin, "
+                  f"over {E1_ERR_RATIO} x the eager code's {e['eager']:.3g}")
+            err = max(err, e["diff"])
+        cases["heading" if heading_known else "no heading"] = gaps
+    return dict(shape=f"L={L}, D={D}", held="2x the eager f32 error",
+                max_abs_err=err, errors=cases)
+
+
 def refine_inputs(dev, rng, g, P, K):
     """K3's arguments at K observations, P particles: every fifth
     observation unmatched, its planes those of a landmark at the
@@ -424,7 +538,8 @@ def check_all(device, p_small: int, p_large: int, p_k1: int,
            "K1": _jacobians(dev, rng, g, p_k1, webmap["K"]),
            "K4 config5": _update(dev, rng, g, "K4", p_large, config5),
            "K5 config5": _resample_update(dev, rng, g, p_large, config5),
-           "S1": check_sim_control(dev, g, SIM_SUPERSTEPS)}
+           "S1": check_sim_control(dev, g, SIM_SUPERSTEPS),
+           "E1": check_ekf_predict(dev, g, **EKF10K)}
     if dev.type == "cuda":
         after = launch_counts()
         idle = [k for k in after if after[k] == before[k]]

@@ -28,6 +28,9 @@ With no mesh the one card owns every row and the collectives are the
 identity; a mesh of one rank runs the same operations through
 collectives over a group of one, with the same result bit for bit.
 
+A predict tick is one launch of E1 (``ops.kernels.ekf``) on the card
+and its plain twin, ``_predict_local_plain``, elsewhere.
+
 An update records four spans beneath the runner's ``filter.update``
 (``slam_tpu_torch.spans``): ``ekf.associate``, ``ekf.gain``, ``ekf.pmm``
 (the one pass over Pmm) and ``ekf.augment``. ``pmm_passes.count``
@@ -70,6 +73,7 @@ from slam_tpu_torch.ops.kalman import (
     innovation,
     solve_lower,
 )
+from slam_tpu_torch.ops.kernels.ekf import ekf_predict_tick
 from slam_tpu_torch.parallel.mesh import (
     all_gather_rows,
     axis_size,
@@ -192,9 +196,35 @@ def sharded_state_to_numpy(state: ShardedEKFState) -> dict:
 def _predict_local(state: ShardedEKFState, v, g, Q, wheelbase, dt, phi,
                    sigma_phi, heading_known: bool, shard: Shard
                    ) -> ShardedEKFState:
+    """One predict tick: E1 (``ops.kernels.ekf``, one launch) on the
+    card, the plain twin ``_predict_local_plain`` elsewhere. On the card
+    v, g and phi are 0-d float32 tensors on the state's device; a heading
+    term that finds no free column in ``hk`` goes into Pmm here, as in
+    the twin."""
+    if not state.x.is_cuda:
+        return _predict_local_plain(state, v, g, Q, wheelbase, dt, phi,
+                                    sigma_phi, heading_known, shard)
+    x, P00, P0m, u = ekf_predict_tick(
+        state.x, state.P00, state.P0m, state.hk, state.hk_n, v, g, phi, Q,
+        wheelbase=wheelbase, dt=dt, sigma_phi=sigma_phi,
+        heading_known=heading_known)
+    state = state._replace(x=x, P00=P00, P0m=P0m)
+    if not heading_known:
+        return state
+    if u is None:
+        return state._replace(hk_n=state.hk_n + 1)
+    lo = shard.row_lo
+    pmm_passes.count += 1
+    state.Pmm.addr_(u[lo:lo + shard.rows], u, alpha=-1.0)
+    return state
+
+
+def _predict_local_plain(state: ShardedEKFState, v, g, Q, wheelbase, dt,
+                         phi, sigma_phi, heading_known: bool, shard: Shard
+                         ) -> ShardedEKFState:
     """Bicycle predict (pose block and cross rows only; Pmm untouched),
     then the optional scalar heading Joseph update, whose Pmm term is a
-    rank-1 outer product, deferred into ``hk``."""
+    rank-1 outer product, deferred into ``hk``. The plain twin of E1."""
     x = state.x
     v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
     g = torch.as_tensor(g, dtype=x.dtype, device=x.device)
