@@ -86,7 +86,6 @@ from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.device import card_line, default_device
 from slam_tpu_torch.maps import read_map_file, synthetic_map
 from slam_tpu_torch.models import FastSlam1Deferred, rbpf
-from slam_tpu_torch.models.fastslam1 import DEFERRED_ALIGN
 from slam_tpu_torch.ops import kernels
 from slam_tpu_torch.ops.kernels import build, selfcheck
 from slam_tpu_torch.parallel.ekf import ShardedEkfSlam
@@ -167,7 +166,7 @@ def _deferred_or_none(method, cfg, slam_map, n_particles, device):
     read as "the device is CUDA": FastSLAM 1 at a multiple of 512
     particles runs ``FastSlam1Deferred``; otherwise the method's own
     estimator (None)."""
-    if (method == "FASTSLAM1" and n_particles % DEFERRED_ALIGN == 0
+    if (method == "FASTSLAM1" and FastSlam1Deferred.fits(n_particles)
             and device.type == "cuda"):
         return FastSlam1Deferred(cfg, slam_map.n_landmarks, device=device)
     return None

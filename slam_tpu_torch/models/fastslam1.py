@@ -7,26 +7,21 @@ the heading observe, known data association, likelihood weighting,
 per-landmark 2x2 EKF updates, new-feature initialization, and the
 Neff-gated stratified resample.
 
-The eager update dispatches as the JAX package does on a TPU:
+The eager update runs the weights, the matched landmarks' EKF updates
+and the new features in one in-place launch of the kernel that
+``ops.kernels.kernels.landmark_update`` picks (the id table and the live
+count stay out here), then the resample (``rbpf.resample``).
 
-- the weights, the matched landmarks' EKF updates and the new features
-  in one in-place kernel launch: K4 (1 or 4 threads per particle, by
-  P) when P % 128 == 0, otherwise K2 (the same function at any P, one thread per
-  (observation, particle) pair); the id table and the live count stay
-  out here.
-- resample: G2 from the offspring bounds when P % 512 == 0, else G1.
-
-The deferred path (P % 512 == 0) leaves the resample's landmark gather
-pending and runs it inside the next update (K5), and predicts all the
-control ticks of a superstep in one launch (K6).
+The deferred path (at a P that ``FastSlam1Deferred.fits``) leaves the
+resample's landmark gather pending and runs it inside the next update
+(K5), and predicts all the control ticks of a superstep in one launch
+(K6).
 
 The kernel wrappers run their plain twins for CPU tensors, so the same
 dispatch runs in the CPU tests.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -41,17 +36,8 @@ from slam_tpu_torch.models.particles import (
     init_particles,
 )
 from slam_tpu_torch.ops import resampling as rs
-from slam_tpu_torch.ops.kernels import (
-    bounds_gather_multi,
-    fs1_predict_multi,
-    fused_update,
-    observe,
-    resample_update,
-)
-from slam_tpu_torch.spans import span
-
-FUSED_ALIGN = 128     # K4 when P is a multiple of this
-DEFERRED_ALIGN = 512  # FastSlam1Deferred takes only multiples of this
+from slam_tpu_torch.ops.kernels import bounds_gather_multi, fs1_predict_multi
+from slam_tpu_torch.ops.kernels.kernels import landmark_update
 
 
 def fs1_predict(state: ParticleState, generator: torch.Generator, vn, gn,
@@ -64,17 +50,17 @@ def fs1_predict(state: ParticleState, generator: torch.Generator, vn, gn,
                                                   wheelbase, dt))
 
 
-def fs1_observe(state: ParticleState, z, ids, slot, matched, is_new, R
-                ) -> ParticleState:
-    """Weight, per-landmark EKF update and new features, in place on
-    logw, lm and lm_P: K4 when P % 128 == 0, else K2; then the id table
-    (in place) and the live count."""
-    update = fused_update if state.n_particles % FUSED_ALIGN == 0 else observe
+def fs1_observe(state: ParticleState, z, ids, slot, matched, is_new, R,
+                S=None) -> ParticleState:
+    """Weight, per-landmark EKF update and new features on logw, lm and
+    lm_P (``landmark_update``; with ``S``, pending offspring bounds, into
+    fresh planes), then the id table (in place) and the live count."""
     slot_new, ok = rbpf.new_slots(state, is_new)
-    update(state.xv, state.logw, state.lm, state.lm_P, z, slot, matched,
-           slot_new, ok, R)
+    lm, lm_P = landmark_update(state.xv, state.logw, state.lm, state.lm_P,
+                               z, slot, matched, slot_new, ok, R, S=S)
     rbpf.set_table(state.da_table, ids, slot_new, ok)
-    return state._replace(n=state.n + ok.sum(dtype=torch.int32))
+    return state._replace(lm=lm, lm_P=lm_P,
+                          n=state.n + ok.sum(dtype=torch.int32))
 
 
 def fs1_update(state: ParticleState, z, ids, zmask, R, n_min: float,
@@ -143,23 +129,21 @@ class FastSlam1:
 # Deferred resampling
 # ---------------------------------------------------------------------------
 
+def _identity_bounds(P: int, device) -> torch.Tensor:
+    """The offspring bounds of no resample: arange(1, P + 1)."""
+    return torch.arange(1, P + 1, dtype=torch.int32, device=device)
+
+
 def deferred_resample_bounds(logw, n_min: float, do_resample: bool,
                              uniform_at: rs.UniformAt):
     """The Neff-gated stratified resample decision as offspring bounds:
     (S [P] int32, fired, new logw). S is arange(1, P + 1) when the gate
-    holds. The permutation is not applied here. The gate is read on the
-    host (``rbpf.resample_gate``); the prefix sum and the bounds run only
-    when it fires, through ``rs.cumulative_weights`` and
-    ``rs.offspring_bounds``. ``fs1_update_deferred`` takes these steps
-    itself, so that one ``filter.resample`` span holds the bounds and the
-    pose rows' gather."""
-    n = logw.shape[-1]
-    logw_n, fired = rbpf.resample_gate(logw, n_min, do_resample)
-    if not fired:
-        return (torch.arange(1, n + 1, dtype=torch.int32,
-                             device=logw.device), False, logw_n)
-    S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n, uniform_at)
-    return S, True, torch.full_like(logw_n, -math.log(n))
+    holds (``rbpf.resample_bounds``). The permutation is not applied
+    here."""
+    logw, S, _ = rbpf.resample_bounds(logw, n_min, do_resample, uniform_at)
+    if S is None:
+        return _identity_bounds(logw.shape[-1], logw.device), False, logw
+    return S, True, logw
 
 
 def fs1_update_deferred(dstate: DeferredState, z, ids, zmask, R,
@@ -169,51 +153,31 @@ def fs1_update_deferred(dstate: DeferredState, z, ids, zmask, R,
     deferred into the next update (counterpart: JAX
     ``fs1_update_deferred``).
 
-    When a resample is pending, K5 gathers the landmark planes by its
-    bounds and updates them into fresh buffers; when none is, K4
-    updates them in place, with no copy. This update's own decision
-    becomes the next pending bounds: the Neff gate, read on the host
-    (``rbpf.resample_gate``), and, only when it fires, the prefix sum and
-    the offspring bounds (``rs.cumulative_weights``,
-    ``rs.offspring_bounds``); the bounds are arange(1, P + 1) when the
-    gate holds. When it fires, only the 9 pose rows [xv; Pv] are
-    gathered now (G2), because the predict reads them before the next
-    update, and the weights are reset to uniform.
+    ``fs1_observe`` gets the pending bounds, if any. This update's own
+    decision becomes the next pending bounds (``rbpf.resample_bounds``;
+    arange(1, P + 1) when the gate holds); when it fires, only the 9 pose
+    rows [xv; Pv] are gathered now (G2), because the predict reads them
+    before the next update.
     Equal to ``fs1_update`` followed by its gather, up to the one-update
     delay of the landmark gather, which ``finalize_deferred`` applies.
 
     Unlike JAX, the gate is a host ``if`` (one counted sync per call)
     where JAX uses ``lax.cond``, so K5 launches exactly once per fired
     gate."""
-    state, S = dstate.ps, dstate.S
+    state = dstate.ps
     slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
-    slot_new, ok = rbpf.new_slots(state, is_new)
-    if dstate.pending:
-        lm, lm_P = resample_update(state.xv, state.logw, state.lm,
-                                   state.lm_P, S, z, slot, matched,
-                                   slot_new, ok, R)
-        state = state._replace(lm=lm, lm_P=lm_P)
-    else:
-        fused_update(state.xv, state.logw, state.lm, state.lm_P, z, slot,
-                     matched, slot_new, ok, R)
-    rbpf.set_table(state.da_table, ids, slot_new, ok)
-    state = state._replace(n=state.n + ok.sum(dtype=torch.int32))
-
-    P = state.n_particles
-    logw, fired = rbpf.resample_gate(state.logw, n_min, do_resample)
+    state = fs1_observe(state, z, ids, slot, matched, is_new, R,
+                        S=dstate.S if dstate.pending else None)
+    logw, S, poses = rbpf.resample_bounds(
+        state.logw, n_min, do_resample, uniform_at,
+        lambda S: bounds_gather_multi([torch.cat([state.xv, state.Pv])],
+                                      S)[0])
+    fired = S is not None
     if fired:
-        with span("filter.resample"):
-            S_next = rs.offspring_bounds(rs.cumulative_weights(logw), P,
-                                         uniform_at)
-            (small,) = bounds_gather_multi(
-                [torch.cat([state.xv, state.Pv])], S_next)
-            state = state._replace(xv=small[:3], Pv=small[3:])
-            logw = torch.full_like(logw, -math.log(P))
+        state = state._replace(xv=poses[:3], Pv=poses[3:])
     else:
-        S_next = torch.arange(1, P + 1, dtype=torch.int32,
-                              device=logw.device)
-    return DeferredState(ps=state._replace(logw=logw), S=S_next,
-                         pending=fired)
+        S = _identity_bounds(state.n_particles, logw.device)
+    return DeferredState(ps=state._replace(logw=logw), S=S, pending=fired)
 
 
 def finalize_deferred(dstate: DeferredState) -> ParticleState:
@@ -231,11 +195,16 @@ def finalize_deferred(dstate: DeferredState) -> ParticleState:
                           lm_P=lmP_g.reshape(3, L, P))
 
 
+# FastSlam1Deferred's particle counts are multiples of this, as the JAX
+# package's (its deferred kernel takes whole 512-particle blocks).
+DEFERRED_ALIGN = 512
+
+
 class FastSlam1Deferred(FastSlam1):
     """FastSLAM 1.0 with the resample's landmark gather deferred into
     the next update's kernel (K5), so a fired resample moves the
     landmark state through device memory once, in the pass the update
-    makes anyway. P must be a multiple of 512, as in JAX.
+    makes anyway. P must be one that ``fits`` accepts.
 
     With ``fused_predict`` (the default) the estimator has
     ``predict_multi``, which the runner calls once per superstep with
@@ -259,17 +228,20 @@ class FastSlam1Deferred(FastSlam1):
         if fused_predict:
             self.predict_multi = self._predict_multi
 
+    @staticmethod
+    def fits(n_particles: int) -> bool:
+        """Whether the filter takes ``n_particles``."""
+        return n_particles % DEFERRED_ALIGN == 0
+
     def init(self, n_particles: int | None = None) -> DeferredState:
         ps = super().init(n_particles)
         P = ps.n_particles
-        if P % DEFERRED_ALIGN:
+        if not self.fits(P):
             raise ValueError(f"FastSlam1Deferred needs a particle count "
                              f"that is a multiple of {DEFERRED_ALIGN}, "
                              f"got {P}")
-        return DeferredState(
-            ps=ps, S=torch.arange(1, P + 1, dtype=torch.int32,
-                                  device=self.device),
-            pending=False)
+        return DeferredState(ps=ps, S=_identity_bounds(P, self.device),
+                             pending=False)
 
     def predict(self, state: DeferredState, generator, vn, gn, phi_true
                 ) -> DeferredState:

@@ -14,9 +14,10 @@ Per observe tick (``fs2_update``), as the JAX package runs it on a TPU:
 - the proposal sample xvs ~ N(xv_r, Pv_r), the importance weight
   prior / proposal, and Pv zeroed;
 - the likelihood, the feature updates and the new features at the
-  sampled pose, in place: K4 when P % 128 == 0, else K2, both reading
-  the landmark planes by slot (``fastslam1.fs1_observe``);
-- the Neff-gated resample (G2 when P % 512 == 0, else G1).
+  sampled pose, in place, by the kernel that
+  ``ops.kernels.landmark_update`` picks (K4 or K2), reading the
+  landmark planes by slot (``fastslam1.fs1_observe``);
+- the Neff-gated resample (``rbpf.resample``: G2 or G1).
 
 With no observation at all the sample, the weight term and the Pv reset
 are switched off by ``torch.where`` on the device, not by a host branch:

@@ -25,10 +25,8 @@ from slam_tpu_torch.models.particles import (
 )
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
+from slam_tpu_torch.ops.kernels.gather import bounds_form
 from slam_tpu_torch.spans import span
-
-
-BOUNDS_ALIGN = 512    # resample through G2 when P is a multiple of this
 
 
 def host_bool(flag: torch.Tensor) -> bool:
@@ -213,22 +211,39 @@ def resample_gate(logw, n_min: float, do_resample: bool
     return logw_n, bool(do_resample) and host_bool(neff < n_min)
 
 
+def resample_bounds(logw, n_min: float, do_resample: bool,
+                    uniform_at: rs.UniformAt, gather=None):
+    """The Neff gate (``resample_gate``) and, when it fires, inside one
+    ``filter.resample`` span, the offspring bounds S, ``gather(S)`` (the
+    caller's move of its rows, if any) and uniform weights: (logw, S,
+    gather's result), S and the result None when the gate holds."""
+    logw_n, fired = resample_gate(logw, n_min, do_resample)
+    if not fired:
+        return logw_n, None, None
+    n = logw.shape[-1]
+    with span("filter.resample"):
+        S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n,
+                                uniform_at)
+        moved = gather(S) if gather is not None else None
+        return torch.full_like(logw_n, -math.log(n)), S, moved
+
+
 def resample(state: ParticleState, n_min: float, do_resample: bool,
              uniform_at: rs.UniformAt) -> ParticleState:
     """Neff-gated stratified resampling and ancestor gather. The gate
-    is read on the host (one sync); when it fires, the gather runs on
-    G2 from the offspring bounds if P % BOUNDS_ALIGN == 0, else on G1 from the
-    ancestor vector, as the JAX package dispatches."""
+    is read on the host (one sync); when it fires, the gather runs on G2
+    from the offspring bounds or on G1 from the ancestor vector, as
+    ``ops.kernels.bounds_form`` picks."""
     n = state.n_particles
+    if bounds_form(n):
+        logw, _, moved = resample_bounds(
+            state.logw, n_min, do_resample, uniform_at,
+            lambda S: gather_particles_bounds(state, S))
+        return (state if moved is None else moved)._replace(logw=logw)
     logw_n, fired = resample_gate(state.logw, n_min, do_resample)
     if not fired:
         return state._replace(logw=logw_n)
     with span("filter.resample"):
-        if n % BOUNDS_ALIGN == 0:
-            S = rs.offspring_bounds(rs.cumulative_weights(logw_n), n,
-                                    uniform_at)
-            state = gather_particles_bounds(state, S)
-        else:
-            state = gather_particles(
-                state, rs.stratified_indices(logw_n, uniform_at))
+        state = gather_particles(
+            state, rs.stratified_indices(logw_n, uniform_at))
         return state._replace(logw=torch.full_like(logw_n, -math.log(n)))

@@ -3,9 +3,10 @@ slam_tpu.ops.pallas.gather).
 
 ``sorted_gather_multi(arrays, idx)`` is ``[a[:, idx] for a in arrays]``;
 ``bounds_gather_multi(arrays, S)`` is the same gather with the ancestors
-given as offspring bounds. Both are bit-exact copies. A CPU tensor goes
-to the plain twin, a CUDA tensor to csrc/gather.cu, one launch for the
-whole list; each wrapper counts its launches in ``<wrapper>.launches``.
+given as offspring bounds (``bounds_form`` picks one for a resample).
+Both are bit-exact copies. A CPU tensor goes to the plain twin, a CUDA
+tensor to csrc/gather.cu, one launch for the whole list; each wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,15 @@ import torch
 
 from slam_tpu_torch.ops.kernels import build
 from slam_tpu_torch.ops.resampling import ancestors_from_bounds
+
+# G2 at a P that is a multiple of this, else G1: the JAX package's TPU rule
+# (its bounds gather takes whole 512-particle blocks).
+BOUNDS_ALIGN = 512
+
+
+def bounds_form(P: int) -> bool:
+    """Whether a resample of P particles gathers by offspring bounds."""
+    return P % BOUNDS_ALIGN == 0
 
 
 def sorted_gather_multi_plain(arrays, idx):

@@ -258,8 +258,8 @@ def observe_plain(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
 def observe(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new,
             R, group=None) -> None:
     """K2 (replaces kernels.py:_observe_call and, around it, the gather,
-    scatters and add_new_features of the JAX package's update at a P
-    that is no multiple of 128): K4's contract at any P, in place on
+    scatters and add_new_features of the JAX package's update where
+    ``landmark_update`` picks it): K4's contract at any P, in place on
     logw, lm and lm_P. The twin on the CPU, the CUDA kernel
     csrc/observe.cu (one thread per (observation, particle) pair) on
     the card; on a slot that two matched observations share it keeps the
@@ -351,3 +351,29 @@ def resample_update_launch(xv, logw, lm, lm_P, S, z, slot, matched,
 
 
 resample_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The FastSLAM 1 update's kernel: K5, K4 or K2
+# ---------------------------------------------------------------------------
+
+# K4 at a P that is a multiple of this, else K2: the JAX package's TPU rule
+# (fs1_update_tpu takes whole 128-lane blocks), kept until the crossover of
+# K2 and K4 on the card is measured.
+FUSED_ALIGN = 128
+
+
+def landmark_update(xv, logw, lm, lm_P, z, slot, matched, slot_new,
+                    ok_new, R, *, S=None, group=None):
+    """The FastSLAM 1 update of logw and the landmark planes by the one
+    kernel that fits: K5 when ``S``, a pending resample's offspring
+    bounds, is given (into fresh planes); else K4 when P is a multiple of
+    FUSED_ALIGN, K2 at any other P, in place, ``group`` their
+    cross-shard arm. Returns the updated (lm, lm_P)."""
+    if S is not None:
+        return resample_update(xv, logw, lm, lm_P, S, z, slot, matched,
+                               slot_new, ok_new, R)
+    update = fused_update if logw.shape[-1] % FUSED_ALIGN == 0 else observe
+    update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new, R,
+           group=group)
+    return lm, lm_P

@@ -6,8 +6,8 @@ particles over ``p``, landmark slots over ``l``; each ``l`` shard owns
 L / S_l consecutive slots. Known association routes every observation
 to the one shard that owns its slot, so little crosses the mesh:
 
-- FastSLAM 1: each shard's update sees only the slots it owns (K4 or K2
-  with the cross-shard arm, ``kernels.cross_shard_update``), and the
+- FastSLAM 1: each shard's update sees only the slots it owns
+  (``kernels.landmark_update`` with the cross-shard arm), and the
   per-particle weight term is summed over ``l``: one [Pl] all-reduce;
 - FastSLAM 2: the K gathered landmark planes, masked to their owners,
   are summed over ``l`` (one [5, K, Pl] all-reduce), so the proposal's
@@ -28,7 +28,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from slam_tpu_torch.models import rbpf
-from slam_tpu_torch.models.fastslam1 import FUSED_ALIGN, fs1_predict
+from slam_tpu_torch.models.fastslam1 import fs1_predict
 from slam_tpu_torch.models.fastslam2 import (
     _log_likelihood_at,
     fs2_predict,
@@ -37,7 +37,7 @@ from slam_tpu_torch.models.fastslam2 import (
 )
 from slam_tpu_torch.models.particles import ParticleState
 from slam_tpu_torch.ops import planes as pk
-from slam_tpu_torch.ops.kernels import fused_update, observe
+from slam_tpu_torch.ops.kernels.kernels import landmark_update
 from slam_tpu_torch.parallel.filter import _ShardedFastSlamBase
 from slam_tpu_torch.parallel.mesh import axis_size, mesh_over
 
@@ -125,9 +125,9 @@ class _LandmarkShardedBase(_ShardedFastSlamBase):
 
 
 class LandmarkShardedFastSlam1(_LandmarkShardedBase):
-    """FastSLAM 1.0 on a (p, l) mesh. On the card its update is K4 (K2
-    at a block size that is no multiple of 128) with the cross-shard
-    weight arm. ``fused=False`` takes the JAX package's arm off a TPU
+    """FastSLAM 1.0 on a (p, l) mesh. Its update is the kernel that
+    ``kernels.landmark_update`` picks, with the cross-shard weight arm.
+    ``fused=False`` takes the JAX package's arm off a TPU
     instead: the owned slots' planes gathered, the likelihood summed
     over ``l``, the feature updates scattered back, the new features
     written apart."""
@@ -146,10 +146,9 @@ class LandmarkShardedFastSlam1(_LandmarkShardedBase):
         slot_new, ok, ok_here, slot_new_l = _new_slots_local(
             state, is_new, self.lo, self.n_l)
         if self.fused:
-            update = (fused_update if state.n_particles % FUSED_ALIGN == 0
-                      else observe)
-            update(state.xv, state.logw, state.lm, state.lm_P, z, slot_l,
-                   own, slot_new_l, ok_here, self.R, group=self.l_group)
+            landmark_update(state.xv, state.logw, state.lm, state.lm_P, z,
+                            slot_l, own, slot_new_l, ok_here, self.R,
+                            group=self.l_group)
         else:
             gathered = rbpf.gather_landmarks(state, slot_l)
             J, v0, v1 = rbpf.observe_planes(state, z, slot_l, self.R,

@@ -29,6 +29,7 @@ import torch.distributed as dist
 from slam_tpu_torch.models import rbpf
 from slam_tpu_torch.ops import resampling as rs
 from slam_tpu_torch.ops.kernels import bounds_gather_multi, sorted_gather_multi
+from slam_tpu_torch.ops.kernels.gather import bounds_form
 from slam_tpu_torch.spans import span
 
 PARTICLE_FIELDS = ("xv", "Pv", "lm", "lm_P")
@@ -107,15 +108,17 @@ def _unpack(state, particle_fields, picked):
 
 def _run_local(state, wn, u, dither, particle_fields):
     """One rank: every ancestor is local, so the ring becomes a plain
-    stratified gather. On the card at Pl % 512 == 0 it runs G2 from the
-    offspring bounds (JAX's ``bounds_gather_multi`` arm on a TPU), with
-    the dither table read at the bounds' positions; otherwise G1 by the
-    ancestors that a search of the prefix sum finds for u. The prefix
+    stratified gather. On the card, where ``bounds_form`` picks it, G2
+    from the offspring bounds (JAX's ``bounds_gather_multi`` arm on a
+    TPU), with the dither table read at the bounds' positions; else G1
+    by the ancestors that a search of the prefix sum finds for u. The prefix
     sums here are blocked (``ops.resampling._cumsum_blocked``): a CUDA
     ``torch.cumsum`` of a long vector rounds differently from run to
     run, and one ulp moves an ancestor."""
     Pl = wn.shape[0]
-    if wn.is_cuda and Pl % rbpf.BOUNDS_ALIGN == 0:
+    # Off the card G1 at every Pl: JAX's ring takes it off a TPU, and the
+    # CPU tests hold this ring bit for bit against JAX's.
+    if wn.is_cuda and bounds_form(Pl):
         return _local_bounds_resample(state, wn, lambda pos: dither[pos],
                                       particle_fields)
     idx = torch.searchsorted(rs._cumsum_blocked(wn), u, out_int32=True)

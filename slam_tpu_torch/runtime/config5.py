@@ -37,11 +37,7 @@ import torch.distributed as dist
 from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.device import default_device
 from slam_tpu_torch.maps import SlamMap, synthetic_map
-from slam_tpu_torch.models.fastslam1 import (
-    DEFERRED_ALIGN,
-    FastSlam1,
-    FastSlam1Deferred,
-)
+from slam_tpu_torch.models.fastslam1 import FastSlam1, FastSlam1Deferred
 from slam_tpu_torch.parallel.landmarks import (
     LandmarkShardedFastSlam1,
     make_mesh_2d,
@@ -100,16 +96,16 @@ def run_config5(n_particles: int = 1_000_000,
     Inside a process group every rank calls this. ``mesh_shape`` =
     (n_p, n_l) takes the first n_p n_l of ``ranks`` (of the group's ranks
     by default); the filter is the JAX package's choice,
-    ``FastSlam1Deferred`` on a (1, 1) mesh at a particle count that is a
-    multiple of 512, else ``LandmarkShardedFastSlam1`` on
+    ``FastSlam1Deferred`` on a (1, 1) mesh at a particle count it
+    ``fits``, else ``LandmarkShardedFastSlam1`` on
     ``make_mesh_2d(n_p, n_l)``, and BA runs on the same ranks as a 1-D
     landmark mesh. The run takes place on the mesh's device (``device``,
     if named, must be that one); each rank of the mesh returns the same
     result (the walls are the slowest rank's), a rank outside it None.
 
     Outside a process group the run is on one device, ``device`` (none
-    named: the card): ``FastSlam1Deferred`` at a multiple of 512
-    particles, else ``FastSlam1`` (the one-device form of the sharded
+    named: the card): ``FastSlam1Deferred`` at a particle count it
+    ``fits``, else ``FastSlam1`` (the one-device form of the sharded
     filter), and ``solve_ba_sharded`` on one shard; a ``mesh_shape``
     other than (1, 1) raises ``ValueError``. ``ba_seconds`` ends with a
     device sync. ``rng_impl`` (the TPU's hardware generator) is not
@@ -120,7 +116,7 @@ def run_config5(n_particles: int = 1_000_000,
             "port (ROADMAP.md, North star); the filter draws from torch's "
             "generators")
     n_p, n_l = mesh_shape
-    deferred = (n_p, n_l) == (1, 1) and n_particles % DEFERRED_ALIGN == 0
+    deferred = (n_p, n_l) == (1, 1) and FastSlam1Deferred.fits(n_particles)
     cfg, slam_map = config5_setup(n_landmarks, capacity=capacity)
     if dist.is_initialized():
         ranks = list(range(dist.get_world_size()) if ranks is None

@@ -56,7 +56,10 @@ class RunResult(NamedTuple):
     host_syncs: int            # device-to-host reads inside the loop
 
 
-MULTI_ALIGN = 1024   # predict_multi when P is a multiple of this
+# predict_multi when P is a multiple of this, the JAX runner's rule. It stays
+# here: ``_superstep_for``, which the benchmark calls, reads it, while the
+# benchmark's ``Recorder`` offers ``predict_multi`` by the estimator alone.
+MULTI_ALIGN = 1024
 
 
 class Runner:
@@ -115,12 +118,8 @@ class Runner:
                 sim_state, self.config.steps_per_observe, imu=ekf)
             # An EKF observes the noisy IMU heading, FastSLAM the true
             # one.
-            if ekf:
-                phis = [self.sim.heading_measurement(
-                    _at_pose(sim_state, pose), u)[1]
-                    for pose, u in zip(ticks.poses, ticks.imu_draws)]
-            else:
-                phis = ticks.poses[:, 2].unbind(0)
+            phis = (ticks.imu_headings if ekf
+                    else ticks.poses[:, 2]).unbind(0)
         for ctl, phi in zip(ticks.controls, phis):
             with span("filter.predict"):
                 est_state = self.est.predict(est_state, gen, ctl[0], ctl[1],
@@ -303,12 +302,6 @@ class Runner:
         from slam_tpu_torch.runtime.stream import stream_run
         return stream_run(self, seed=seed, n_ticks=n_ticks, plot=plot,
                           sim_name=sim_name)
-
-
-def _at_pose(sim_state, pose):
-    """``sim_state`` with its truth pose replaced by ``pose``."""
-    return sim_state._replace(
-        vehicle=sim_state.vehicle._replace(pose=pose))
 
 
 def to_host(tensors) -> list:

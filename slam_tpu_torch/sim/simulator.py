@@ -46,6 +46,7 @@ class ControlTicks(NamedTuple):
     poses: torch.Tensor         # [T, 3] truth pose after each tick
     odometry: torch.Tensor      # [3] dead reckoning over the T ticks
     imu_draws: torch.Tensor | None  # [T] heading_measurement's uniforms
+    imu_headings: torch.Tensor | None  # [T] heading_measurement's values
 
 
 def _f32_sqrt(v: float) -> float:
@@ -117,9 +118,10 @@ class Simulator:
         with the dead-reckoning odometry over them. The noise is drawn
         tick by tick from the state's generator before the launch, as
         ``control_step`` draws it; with ``imu`` each tick's uniform for
-        ``heading_measurement`` follows its normals. A run so draws the
-        stream that ``control_step`` and ``heading_measurement``, called
-        tick by tick, would draw."""
+        ``heading_measurement`` follows its normals, and the T noisy
+        headings are computed from them in one product and one sum. A run
+        so draws the stream that ``control_step`` and
+        ``heading_measurement``, called tick by tick, would draw."""
         cfg = self.config
         f32 = dict(dtype=torch.float32, device=self.device)
         noisy = bool(cfg.SWITCH_CONTROL_NOISE)
@@ -132,8 +134,9 @@ class Simulator:
                 torch.rand((), generator=state.generator, out=draws[t])
         vehicle, ctl, poses, odometry = control_multi(
             state.vehicle, self.waypoints, noise, **self.tick_constants())
+        headings = poses[:, 2] + cfg.sigmaT * draws if imu else None
         return (state._replace(vehicle=vehicle, tick=state.tick + n_ticks),
-                ControlTicks(ctl, poses, odometry, draws))
+                ControlTicks(ctl, poses, odometry, draws, headings))
 
     def observe_step(self, state: SimState, noise=None
                      ) -> tuple[SimState, Observation]:

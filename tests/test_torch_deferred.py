@@ -230,8 +230,8 @@ def test_runner_deferred_matches_eager(monkeypatch):
     deferred run equals the eager one bit for bit on the CPU."""
     cfg, slam_map = _scene()
     fires = []
-    k5 = tfs1.resample_update
-    monkeypatch.setattr(tfs1, "resample_update",
+    k5 = tkernels.resample_update
+    monkeypatch.setattr(tkernels, "resample_update",
                         lambda *a: fires.append(1) or k5(*a))
     r_e = Runner(cfg, slam_map, "FASTSLAM1", n_particles=1024,
                  device="cpu").run(seed=3, n_ticks=200)

@@ -210,33 +210,45 @@ def test_cli_method_like_jax(tmp_path, monkeypatch, capsys, args,
 
 
 def test_ekf_observes_the_noisy_heading(ring40, monkeypatch):
-    """An EKF gets the simulator's noisy IMU heading every tick, as the
-    JAX runner gives it; FastSLAM gets the true heading and the
-    simulator draws nothing more for it."""
+    """An EKF gets the simulator's noisy IMU heading every tick, truth +
+    sigmaT * u with u that tick's uniform draw, as the JAX runner gives
+    it; FastSLAM gets the true heading and the simulator draws nothing
+    more for it. The expected headings are float32 numpy arithmetic on
+    the ticks the simulator returned."""
+    import torch
+
     from slam_tpu_torch.runtime import Runner
     from slam_tpu_torch.sim.simulator import Simulator
 
     cfg, slam_map = ring40["port"]
-    headings, seen = [], []
-    measure = Simulator.heading_measurement
+    control_ticks = Simulator.control_ticks
+    drawn = []
 
-    def counted(self, state, u=None):
-        state, phi = measure(self, state, u)
-        headings.append(phi)
-        return state, phi
-    monkeypatch.setattr(Simulator, "heading_measurement", counted)
-    ticks = 3 * cfg.steps_per_observe
+    def recorded(self, state, n_ticks, imu=False):
+        state, ticks = control_ticks(self, state, n_ticks, imu)
+        drawn.append(ticks)
+        return state, ticks
+    monkeypatch.setattr(Simulator, "control_ticks", recorded)
+    n_ticks = 3 * cfg.steps_per_observe
     for method in ("EKF1", "FASTSLAM1"):
+        drawn.clear()
+        seen = []
         runner = Runner(cfg, slam_map, method, n_particles=8, device="cpu")
         predict = runner.est.predict
         runner.est.predict = (lambda state, gen, v, g, phi, _p=predict:
-                              seen.append(phi) or _p(state, gen, v, g, phi))
-        runner.run(seed=3, n_ticks=ticks)
+                              seen.append(phi.item())
+                              or _p(state, gen, v, g, phi))
+        runner.run(seed=3, n_ticks=n_ticks)
+        truth = torch.cat([t.poses for t in drawn])[:, 2].numpy()
+        seen = np.asarray(seen, np.float32)
+        assert len(seen) == len(truth) == n_ticks
         if method == "EKF1":
-            assert len(headings) == len(seen) == ticks
-            assert all(p is h for p, h in zip(seen, headings))
-    assert len(headings) == ticks       # FastSLAM drew none
-    assert len(seen) == 2 * ticks
+            u = torch.cat([t.imu_draws for t in drawn]).numpy()
+            assert ((u >= 0) & (u < 1)).all() and u.std() > 0
+            assert np.array_equal(seen, truth + np.float32(cfg.sigmaT) * u)
+        else:
+            assert all(t.imu_draws is None for t in drawn)
+            assert np.array_equal(seen, truth)
 
 
 def test_fastslam2_heading_unknown_takes_the_multi_tick_predict(

@@ -42,6 +42,8 @@ from slam_tpu_torch.models.particles import (
     state_to_numpy,
 )
 from slam_tpu_torch.ops import kernels as tk
+from slam_tpu_torch.ops.kernels import gather as tkg
+from slam_tpu_torch.ops.kernels import kernels as tkk
 from slam_tpu_torch.ops import resampling as trs
 
 DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data")
@@ -179,7 +181,8 @@ def test_superstep_matches_jax(scene, P, gate, monkeypatch):
 def test_fs1_update_dispatch_follows_particle_count(scene, P, want,
                                                     monkeypatch):
     """K4 exactly when P % 128 == 0, G2 exactly when P % 512 == 0: the
-    gates the JAX package applies on a TPU."""
+    gates the JAX package applies on a TPU (``kernels.landmark_update``
+    picks the update's kernel)."""
     from slam_tpu_torch.models import particles as tparticles
 
     calls = set()
@@ -192,8 +195,8 @@ def test_fs1_update_dispatch_follows_particle_count(scene, P, want,
             return fn(*args, **kw)
         monkeypatch.setattr(module, name, wrapped)
 
-    record(tfs1, "observe", "K2")
-    record(tfs1, "fused_update", "K4")
+    record(tkk, "observe", "K2")
+    record(tkk, "fused_update", "K4")
     record(tparticles, "sorted_gather_multi", "G1")
     record(tparticles, "bounds_gather_multi", "G2")
     cfg, slam_map, pose, obs = scene
@@ -357,3 +360,107 @@ def test_drive_matches_jax(stream, P, monkeypatch):
                                           err_msg=f"superstep {i}: {f}")
     assert True in seen["gates"] and False in seen["gates"]
     assert int(tstate.n) == 4
+
+
+# ---------------------------------------------------------------------------
+# The update's kernel and the resample's form, filter by filter
+# ---------------------------------------------------------------------------
+
+CHOICE_SUPERSTEPS = 12
+# (update kernel with nothing pending, resample gather) of each filter, at
+# the loop cell's P, the 2^20 cells' form at a small P, and the one-rank
+# ring of the sharded filters.
+CHOICES = {"eager-100": ("K2", "G1"), "eager-1024": ("K4", "G2"),
+           "deferred-1024": ("K4", "G2"), "ring-1024": ("K4", "G1")}
+
+
+def _expected_calls(kind, gates):
+    """The calls a run of ``kind`` must make, given its gates' outcomes:
+    per superstep the update's kernel (K5 after a fired gate of the
+    deferred filter), the gate's read, and the gather when it fired."""
+    update, form = CHOICES[kind]
+    out, pending = [], False
+    for fired in gates:
+        out += ["K5" if pending else update, "fire" if fired else "hold"]
+        out += [form] if fired else []
+        pending = fired and kind.startswith("deferred")
+    return out
+
+
+@pytest.mark.parametrize("kind", list(CHOICES))
+def test_each_filter_takes_one_update_kernel_and_resample_form(
+        kind, monkeypatch, tmp_path):
+    """Which kernel each filter's update launches (K2, K4 or K5: the
+    pick of ``kernels.landmark_update``) and which gather its resample
+    takes (G1 or G2), recorded on the CPU at the kernel wrappers (G1 and
+    G2 at the plain twins they run there), over a run whose gate both
+    fires and holds; and one ``filter.resample`` span and one
+    ``filter.host_read`` per fired gate, one read per gate."""
+    import collections
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_tpu_torch import spans
+    from slam_tpu_torch.config import SlamConfig as TConfig
+    from slam_tpu_torch.maps import read_map_file as tread
+    from slam_tpu_torch.parallel import filter as tfilter
+    from slam_tpu_torch.parallel.distributed import init_distributed
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.runtime import Runner
+
+    calls = []
+    for module, name, tag in (
+            (tkk, "observe", "K2"), (tkk, "fused_update", "K4"),
+            (tkk, "resample_update", "K5"),
+            (tkg, "sorted_gather_multi_plain", "G1"),
+            (tkg, "bounds_gather_multi_plain", "G2")):
+        def wrapped(*args, _fn=getattr(module, name), _tag=tag, **kw):
+            calls.append(_tag)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+    host_bool = trbpf.host_bool
+
+    def gate_read(flag):
+        fired = host_bool(flag)
+        calls.append("fire" if fired else "hold")
+        return fired
+    gate_read.count = 0
+    monkeypatch.setattr(trbpf, "host_bool", gate_read)
+
+    # At 200 m the vehicle sees ~17 of ring40's landmarks from the start.
+    cfg = TConfig.from_ini(os.path.join(DATA, "ring40.ini")).replace(
+        MAX_RANGE=200.0)
+    slam_map = tread(os.path.join(DATA, "ring40.mat"))
+    P = int(kind.split("-")[1])
+    spans.clear()
+    try:
+        if kind.startswith("ring"):
+            init_distributed(f"file://{tmp_path}/store", 1, 0, device="cpu")
+            est = tfilter.ShardedFastSlam1(cfg, slam_map.n_landmarks,
+                                           make_mesh(1), P)
+        elif kind.startswith("deferred"):
+            est = tfs1.FastSlam1Deferred(cfg, slam_map.n_landmarks,
+                                         device="cpu")
+        else:
+            est = None
+        runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=P,
+                        estimator=est, device="cpu")
+        with profile(activities=[ProfilerActivity.CPU]):
+            runner.run(seed=3,
+                       n_ticks=CHOICE_SUPERSTEPS * cfg.steps_per_observe)
+        recs = spans.records()
+    finally:
+        spans.clear()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gates = [c == "fire" for c in calls if c in ("fire", "hold")]
+    assert len(gates) == CHOICE_SUPERSTEPS
+    assert 0 < sum(gates) < len(gates)
+    assert calls == _expected_calls(kind, gates)
+    counts = collections.Counter(r[0] for r in recs)
+    assert counts["filter.resample"] == sum(gates)
+    assert counts["filter.host_read"] == len(gates)
+    inside = collections.Counter(r[0] for r in spans.beneath(recs,
+                                                              "filter.update"))
+    assert inside["filter.resample"] == sum(gates)

@@ -574,9 +574,9 @@ def test_log_likelihood_at_matches_jax_and_the_k2_twin(scene):
 def test_fs2_update_dispatch_follows_particle_count(scene, P, want,
                                                     monkeypatch):
     """K4 exactly when P % 128 == 0, G2 exactly when P % 512 == 0; K3 on
-    every update."""
-    from slam_tpu_torch.models import fastslam1 as tfs1
+    every update (``kernels.landmark_update`` picks K4 or K2)."""
     from slam_tpu_torch.models import particles as tparticles
+    from slam_tpu_torch.ops.kernels import kernels as tkk
 
     calls = set()
 
@@ -589,8 +589,8 @@ def test_fs2_update_dispatch_follows_particle_count(scene, P, want,
         monkeypatch.setattr(module, name, wrapped)
 
     record(tfs2, "fs2_refine", "K3")
-    record(tfs1, "observe", "K2")
-    record(tfs1, "fused_update", "K4")
+    record(tkk, "observe", "K2")
+    record(tkk, "fused_update", "K4")
     record(tparticles, "sorted_gather_multi", "G1")
     record(tparticles, "bounds_gather_multi", "G2")
     cfg, slam_map, pose, obs = scene

@@ -89,8 +89,9 @@ def test_control_ticks_equal_per_tick_steps(noise, loops, imu):
         assert torch.equal(a.generator.get_state(), b.generator.get_state())
         if imu:
             assert _equal(poses[:, 2] + cfg.sigmaT * ticks.imu_draws, phis)
+            assert _equal(ticks.imu_headings, phis)
         else:
-            assert ticks.imu_draws is None
+            assert ticks.imu_draws is None and ticks.imu_headings is None
         seen.append((int(a.vehicle.waypoint), int(a.vehicle.loops),
                      bool(a.vehicle.done)))
     wps, left, done = zip(*seen)

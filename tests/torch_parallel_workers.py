@@ -407,10 +407,11 @@ def config5_world(rank: int, *, run, choices, ba) -> dict:
     for name in ("FastSlam1Deferred", "LandmarkShardedFastSlam1"):
         cls = getattr(config5, name)
 
-        def spy(*args, _cls=cls, _name=name, **kw):
-            built.append(_name)
-            return _cls(*args, **kw)
-        setattr(config5, name, spy)
+        class Spy(cls):
+            def __init__(self, *args, _name=name, **kw):
+                built.append(_name)
+                super().__init__(*args, **kw)
+        setattr(config5, name, Spy)
     out["choices"] = []
     for P in choices:
         built.clear()
