@@ -31,6 +31,14 @@ collectives over a group of one, with the same result bit for bit.
 A predict tick is one launch of E1 (``ops.kernels.ekf``) on the card
 and its plain twin, ``_predict_local_plain``, elsewhere.
 
+An update is four segments of device work (``_Segments``) with the
+association's decision, an eager call, between the first two. On the
+card with no mesh the segments are replayed from CUDA graphs
+(``_UpdateGraphs``), the same kernels on the same operands; on a mesh
+(whose collectives a graph would hold) and off the card they run
+eagerly. ``update_graphs`` counts the updates replayed, the captures and
+the updates run eagerly.
+
 An update records four spans beneath the runner's ``filter.update``
 (``slam_tpu_torch.spans``): ``ekf.associate``, ``ekf.gain``, ``ekf.pmm``
 (the one pass over Pmm) and ``ekf.augment``. ``pmm_passes.count``
@@ -45,6 +53,8 @@ masked observation adds zeros.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -87,6 +97,11 @@ LM_AXIS = "l"
 
 # Full passes over Pmm (read and written whole) since the process began.
 pmm_passes = SimpleNamespace(count=0)
+# Updates since the process began: served by a replay of CUDA graphs
+# (``replays``, each capture's own call included), captures of a new
+# key (``captures``), and updates run eagerly (``eager``: off the card,
+# on a mesh, and a layout's first call on the card, its warm-up).
+update_graphs = SimpleNamespace(replays=0, captures=0, eager=0)
 
 
 class ShardedEKFState(NamedTuple):
@@ -283,108 +298,185 @@ def _owned_rows(Pmm_local, idx, row_lo: int):
     return torch.where(own[:, None], got, 0.0)
 
 
-def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
-                  gate_reject: float, gate_augment: float,
-                  association_known: bool, shard: Shard
-                  ) -> ShardedEKFState:
-    """Observe step: associate -> batch update -> augment, on the
-    blocks. Pmm is written in place."""
+def _associate_local(state: ShardedEKFState, z, zmask, Re,
+                     association_known: bool, shard: Shard):
+    """The association's device work: (Pjj, stats). Pjj [L, 2, 2], the
+    diagonal blocks of the true Pmm; stats (nis, nd) [K, L], the gated
+    statistics, or None where the association is known."""
+    L = state.capacity
+    # Deferred heading terms: true Pmm = stored Pmm - hk hk'. The cheap
+    # reads below take the low-rank correction; the subtraction itself
+    # rides the batch update's one pass over Pmm.
+    hk = state.hk[:, :state.hk_n]
+    # The diagonal blocks: each shard's own, gathered.
+    Pjj = all_gather_rows(_diag_blocks_local(state.Pmm, shard.row_lo),
+                          shard.group)
+    hk_blk = hk.reshape(L, 2, hk.shape[1])
+    Pjj = Pjj - torch.einsum("lad,lbd->lab", hk_blk, hk_blk)
+    if association_known:
+        return Pjj, None
+    lm = state.x[3:].reshape(L, 2)
+    valid = torch.arange(L, device=state.x.device) < state.n
+    return Pjj, innovation_stats(state.pose, lm, valid, state.P00,
+                                 state.P0m.T.reshape(L, 2, 3), Pjj, z,
+                                 zmask, Re)
+
+
+def _decide(da_table, stats, ids, zmask, gate_reject: float,
+            gate_augment: float):
+    """The association's decision, (assoc, is_new): the table's lookup,
+    or the module's ``gated_nearest`` (looked up at each call) over
+    ``stats``. Always an eager call, so that a stand-in sees every
+    update."""
+    if stats is None:
+        return known_association(da_table, ids, zmask)
+    return gated_nearest(*stats, zmask, gate_reject, gate_augment)
+
+
+def _gain_local(state: ShardedEKFState, z, Pjj, assoc, R, shard: Shard):
+    """The batch update's gain for the association ``assoc``: the new
+    (x, P00, P0m) and W1_m [2L, 2K], whose outer product the pass over
+    Pmm subtracts."""
     K = z.shape[0]
     L = state.capacity
     N2 = 2 * L
     dev = state.x.device
     row_lo, rows = shard.row_lo, shard.rows
+    hk = state.hk[:, :state.hk_n]
+    lm = state.x[3:].reshape(L, 2)
 
-    # ---- association ---------------------------------------------------
+    matched = assoc >= 0
+    slot = torch.where(matched, assoc, 0).long()
+    zp, Hv, Hf, _ = compute_jacobians(state.pose, lm[slot], Pjj[slot], R)
+    Hv = torch.where(matched[:, None, None], Hv, 0.0)
+    Hf = torch.where(matched[:, None, None], Hf, 0.0)
+    Hp = Hv.reshape(2 * K, 3)                                # [2K, 3]
+    # H = [Hp | Hm], where Hm's row pair k holds Hf_k at the columns
+    # gcol[2k : 2k + 2] of the matched landmark. Products with Hm are
+    # gathers of those columns (two nonzeros a row: the same sums).
+    gcol = (2 * slot[:, None] + torch.arange(2, device=dev)).reshape(-1)
+
+    v = torch.where(matched[:, None], innovation(z, zp), 0.0).reshape(2 * K)
+
+    # PHt pose rows [3, 2K]: P00 Hp' + P0m Hm'.
+    P0m_obs = state.P0m[:, gcol].reshape(3, K, 2)
+    PHt_p = state.P00 @ Hp.T + torch.einsum(
+        "ckb,kab->cka", P0m_obs, Hf).reshape(3, 2 * K)
+    # PHt landmark rows: Pm0 Hp' + Pmm Hm'. By symmetry Pmm Hm' needs
+    # only Pmm's observed rows, with the deferred correction; each row
+    # has one owner, so their sum over the shards is exact.
+    obs_rows = psum(_owned_rows(state.Pmm, gcol, row_lo), shard.group)
+    obs_rows = obs_rows - hk[gcol] @ hk.T                    # [2K, 2L]
+    HmP = torch.einsum("kab,kbn->kan", Hf, obs_rows.reshape(K, 2, N2)
+                       ).reshape(2 * K, N2)
+    PHt_m_loc = (state.P0m[:, row_lo:row_lo + rows].T @ Hp.T
+                 + HmP[:, row_lo:row_lo + rows].T)           # [rows, 2K]
+
+    # S = H P H' + R; the landmark contraction is a sum over shards.
+    HmPHt = psum(torch.einsum(
+        "kab,kbc->kac", Hf,
+        _owned_rows(PHt_m_loc, gcol, row_lo).reshape(K, 2, 2 * K)),
+        shard.group)
+    S = Hp @ PHt_p + HmPHt.reshape(2 * K, 2 * K)
+    RR = torch.kron(torch.eye(K, dtype=S.dtype, device=dev), R)
+    S = 0.5 * (S + S.T) + RR
+    S = S + 1e-6 * torch.trace(S) / (2 * K) * torch.eye(
+        2 * K, dtype=S.dtype, device=dev)
+
+    Lc = cholesky_lower(S)
+    # W1 = PHt L^-T ; P -= W1 W1' ; x += PHt S^-1 v.
+    W1_p = solve_lower(Lc, PHt_p.T).T                        # [3, 2K]
+    W1_m_loc = solve_lower(Lc, PHt_m_loc.T).T                # [rows, 2K]
+    W1_m = all_gather_rows(W1_m_loc, shard.group)            # [2L, 2K]
+    sv = solve_lower(Lc, v)
+    x = state.x + torch.cat([W1_p @ sv, W1_m @ sv])
+    x[2] = wrap_angle(x[2])
+
+    P00 = state.P00 - W1_p @ W1_p.T
+    P0m = state.P0m - W1_p @ W1_m.T
+    return x, P00, P0m, W1_m
+
+
+def _pmm_local(state: ShardedEKFState, x, P00, P0m, W1_m, shard: Shard
+               ) -> ShardedEKFState:
+    """The one pass over Pmm: the batch update and the deferred heading
+    terms, Pmm -= [W1_m | hk] [W1_m | hk]', in place; hk emptied."""
+    row_lo, rows = shard.row_lo, shard.rows
+    W = torch.cat([W1_m, state.hk[:, :state.hk_n]], 1)       # [2L, 2K + D]
+    Pmm = state.Pmm.addmm_(W[row_lo:row_lo + rows], W.T, alpha=-1.0)
+    return state._replace(x=x, P00=0.5 * (P00 + P00.T), P0m=P0m, Pmm=Pmm,
+                          hk=state.hk.zero_(), hk_n=0)
+
+
+class _Segments:
+    """An update's device work in the four segments between which the
+    host acts (the decision, the spans, the pass counter), run eagerly:
+    the body that every path shares, and that ``_UpdateGraphs``
+    captures."""
+
+    def __init__(self, state, z, ids, zmask, R, Re,
+                 association_known: bool, shard: Shard):
+        self.state, self.z, self.ids, self.zmask = state, z, ids, zmask
+        self.R, self.Re, self.shard = R, Re, shard
+        self.known = association_known
+
+    def fresh(self) -> tuple:
+        """The inputs a call brings anew (a replay copies them):
+        x, P00, P0m, n, z, ids, zmask."""
+        st = self.state
+        return st.x, st.P00, st.P0m, st.n, self.z, self.ids, self.zmask
+
+    def associate(self):
+        self.Pjj, stats = _associate_local(self.state, self.z, self.zmask,
+                                           self.Re, self.known, self.shard)
+        return stats
+
+    def gain(self, assoc, is_new) -> None:
+        self.is_new = is_new
+        self.gained = _gain_local(self.state, self.z, self.Pjj, assoc,
+                                  self.R, self.shard)
+
+    def pmm(self) -> None:
+        self.state = _pmm_local(self.state, *self.gained, self.shard)
+
+    def augment(self) -> ShardedEKFState:
+        return _augment_local(self.state, self.z, self.ids, self.is_new,
+                              self.Re, self.shard)
+
+
+def _update_phases(seg: _Segments, gate_reject: float, gate_augment: float,
+                   steps=None) -> ShardedEKFState:
+    """Observe step: associate -> batch update -> augment, each in its
+    span, run by ``steps`` (``seg`` itself, or a replay of its capture);
+    the decision between the first two always eager, on ``seg``'s
+    inputs."""
+    steps = seg if steps is None else steps
     with span("ekf.associate"):
-        # Deferred heading terms: true Pmm = stored Pmm - hk hk'. The
-        # cheap reads below take the low-rank correction; the
-        # subtraction itself rides the batch update's one pass over Pmm.
-        hk = state.hk[:, :state.hk_n]
-
-        lm = state.x[3:].reshape(L, 2)
-        valid = torch.arange(L, device=dev) < state.n
-        # The diagonal blocks: each shard's own, gathered.
-        Pjj = all_gather_rows(_diag_blocks_local(state.Pmm, row_lo),
-                              shard.group)
-        hk_blk = hk.reshape(L, 2, hk.shape[1])
-        Pjj = Pjj - torch.einsum("lad,lbd->lab", hk_blk, hk_blk)
-
-        if association_known:
-            assoc, is_new = known_association(state.da_table, ids, zmask)
-        else:
-            nis, nd = innovation_stats(state.pose, lm, valid, state.P00,
-                                       state.P0m.T.reshape(L, 2, 3), Pjj,
-                                       z, zmask, Re)
-            assoc, is_new = gated_nearest(nis, nd, zmask, gate_reject,
-                                          gate_augment)
-
-    # ---- batch update --------------------------------------------------
+        stats = steps.associate()
+        assoc, is_new = _decide(seg.state.da_table, stats, seg.ids,
+                                seg.zmask, gate_reject, gate_augment)
     with span("ekf.gain"):
-        matched = assoc >= 0
-        slot = torch.where(matched, assoc, 0).long()
-        zp, Hv, Hf, _ = compute_jacobians(state.pose, lm[slot], Pjj[slot],
-                                          R)
-        Hv = torch.where(matched[:, None, None], Hv, 0.0)
-        Hf = torch.where(matched[:, None, None], Hf, 0.0)
-        Hp = Hv.reshape(2 * K, 3)                            # [2K, 3]
-        # H = [Hp | Hm], where Hm's row pair k holds Hf_k at the columns
-        # gcol[2k : 2k + 2] of the matched landmark. Products with Hm are
-        # gathers of those columns (two nonzeros a row: the same sums).
-        gcol = (2 * slot[:, None] + torch.arange(2, device=dev)).reshape(-1)
-
-        v = torch.where(matched[:, None], innovation(z, zp),
-                        0.0).reshape(2 * K)
-
-        # PHt pose rows [3, 2K]: P00 Hp' + P0m Hm'.
-        P0m_obs = state.P0m[:, gcol].reshape(3, K, 2)
-        PHt_p = state.P00 @ Hp.T + torch.einsum(
-            "ckb,kab->cka", P0m_obs, Hf).reshape(3, 2 * K)
-        # PHt landmark rows: Pm0 Hp' + Pmm Hm'. By symmetry Pmm Hm' needs
-        # only Pmm's observed rows, with the deferred correction; each
-        # row has one owner, so their sum over the shards is exact.
-        obs_rows = psum(_owned_rows(state.Pmm, gcol, row_lo), shard.group)
-        obs_rows = obs_rows - hk[gcol] @ hk.T                # [2K, 2L]
-        HmP = torch.einsum("kab,kbn->kan", Hf, obs_rows.reshape(K, 2, N2)
-                           ).reshape(2 * K, N2)
-        PHt_m_loc = (state.P0m[:, row_lo:row_lo + rows].T @ Hp.T
-                     + HmP[:, row_lo:row_lo + rows].T)       # [rows, 2K]
-
-        # S = H P H' + R; the landmark contraction is a sum over shards.
-        HmPHt = psum(torch.einsum(
-            "kab,kbc->kac", Hf,
-            _owned_rows(PHt_m_loc, gcol, row_lo).reshape(K, 2, 2 * K)),
-            shard.group)
-        S = Hp @ PHt_p + HmPHt.reshape(2 * K, 2 * K)
-        RR = torch.kron(torch.eye(K, dtype=S.dtype, device=dev), R)
-        S = 0.5 * (S + S.T) + RR
-        S = S + 1e-6 * torch.trace(S) / (2 * K) * torch.eye(
-            2 * K, dtype=S.dtype, device=dev)
-
-        Lc = cholesky_lower(S)
-        # W1 = PHt L^-T ; P -= W1 W1' ; x += PHt S^-1 v.
-        W1_p = solve_lower(Lc, PHt_p.T).T                    # [3, 2K]
-        W1_m_loc = solve_lower(Lc, PHt_m_loc.T).T            # [rows, 2K]
-        W1_m = all_gather_rows(W1_m_loc, shard.group)        # [2L, 2K]
-        sv = solve_lower(Lc, v)
-        x = state.x + torch.cat([W1_p @ sv, W1_m @ sv])
-        x[2] = wrap_angle(x[2])
-
-        P00 = state.P00 - W1_p @ W1_p.T
-        P0m = state.P0m - W1_p @ W1_m.T
-
+        steps.gain(assoc, is_new)
     with span("ekf.pmm"):
-        # The one pass over Pmm: the batch update and the deferred
-        # heading terms, Pmm -= [W1_m | hk] [W1_m | hk]', in place.
         pmm_passes.count += 1
-        W = torch.cat([W1_m, hk], 1)                         # [2L, 2K + D]
-        Pmm = state.Pmm.addmm_(W[row_lo:row_lo + rows], W.T, alpha=-1.0)
-        state = state._replace(x=x, P00=0.5 * (P00 + P00.T), P0m=P0m,
-                               Pmm=Pmm, hk=state.hk.zero_(), hk_n=0)
-
-    # ---- augment -------------------------------------------------------
+        steps.pmm()
     with span("ekf.augment"):
-        return _augment_local(state, z, ids, is_new, Re, shard)
+        return steps.augment()
+
+
+def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
+                  gate_reject: float, gate_augment: float,
+                  association_known: bool, shard: Shard
+                  ) -> ShardedEKFState:
+    """Observe step: associate -> batch update -> augment, on the
+    blocks. Pmm, hk and the id table are written in place. On a card
+    with no mesh (no collective) the segments are replayed from CUDA
+    graphs (``_UpdateGraphs``); elsewhere they run eagerly."""
+    seg = _Segments(state, z, ids, zmask, R, Re, association_known, shard)
+    if state.x.is_cuda and shard.group is None:
+        return _GRAPHS.update(seg, gate_reject, gate_augment)
+    update_graphs.eager += 1
+    return _update_phases(seg, gate_reject, gate_augment)
 
 
 def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
@@ -429,6 +521,142 @@ def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
     rbpf.set_table(state.da_table, ids, slot, ok)
     return state._replace(x=x, P0m=P0m,
                           n=state.n + torch.sum(ok, dtype=torch.int32))
+
+
+class _Captured(NamedTuple):
+    """One layout's four CUDA graphs and the tensors they own: ``inputs``
+    (x, P00, P0m, n, z, ids, zmask) and ``decided`` (assoc, is_new), the
+    static copies of a call's fresh inputs; ``stats`` and ``outputs``
+    (x, P00, P0m, n), what the host reads; ``keep``, the other segment
+    outputs a later graph reads."""
+    graphs: list
+    inputs: list
+    decided: tuple
+    stats: tuple | None
+    outputs: tuple
+    keep: tuple
+
+
+class _Replay:
+    """A call's four segments replayed from ``_Captured``: its fresh
+    inputs copied into the static ones first, and the state returned
+    holding copies of the graphs' outputs (a later replay overwrites
+    them)."""
+
+    def __init__(self, cap: _Captured, seg: _Segments):
+        self.cap, self.seg = cap, seg
+
+    def associate(self):
+        for dst, src in zip(self.cap.inputs, self.seg.fresh()):
+            dst.copy_(src)
+        self.cap.graphs[0].replay()
+        return self.cap.stats
+
+    def gain(self, assoc, is_new) -> None:
+        self.cap.decided[0].copy_(assoc)
+        self.cap.decided[1].copy_(is_new)
+        self.cap.graphs[1].replay()
+
+    def pmm(self) -> None:
+        self.cap.graphs[2].replay()
+
+    def augment(self) -> ShardedEKFState:
+        self.cap.graphs[3].replay()
+        x, P00, P0m, n = (t.clone() for t in self.cap.outputs)
+        return self.seg.state._replace(x=x, P00=P00, P0m=P0m, n=n, hk_n=0)
+
+
+class _UpdateGraphs:
+    """The update's segments as CUDA graphs (``torch.cuda.CUDAGraph``),
+    keyed on the layout of the call (shapes, dtypes, ``hk_n``, the arm)
+    and the addresses of what the graphs read or write in place: Pmm,
+    hk, the id table, R and Re. At most ``KEYS`` captures are kept, the
+    least recently used dropped. A capture holds no reference to a
+    state's tensors (a state let go frees its Pmm, 1.6 GB at 10k
+    landmarks); a tensor with the key's address and layout is the one
+    the graphs address. A layout's first call in the process runs
+    eagerly on the side stream the captures use, as their warm-up; a
+    new key of a warm layout captures and replays at once."""
+
+    KEYS = 2
+
+    def __init__(self):
+        self.captured = collections.OrderedDict()
+        self.warm = set()
+        self.streams = {}
+
+    def update(self, seg: _Segments, gate_reject: float,
+               gate_augment: float) -> ShardedEKFState:
+        st = seg.state
+        in_place = (st.Pmm, st.hk, st.da_table, seg.R, seg.Re)
+        layout = (st.x.device, st.hk_n, seg.known, seg.shard,
+                  *((t.shape, t.dtype) for t in seg.fresh()),
+                  *((t.shape, t.stride(), t.dtype) for t in in_place))
+        key = (*layout, *(t.data_ptr() for t in in_place))
+        dev = st.x.device
+        with torch.cuda.device(dev):
+            cap = self.captured.get(key)
+            if cap is None and layout not in self.warm:
+                update_graphs.eager += 1
+                with self._side(dev):
+                    out = _update_phases(seg, gate_reject, gate_augment)
+                self.warm.add(layout)
+                return out
+            if cap is None:
+                cap = self.captured[key] = self._capture(seg, dev)
+                if len(self.captured) > self.KEYS:
+                    self.captured.popitem(last=False)
+            else:
+                self.captured.move_to_end(key)
+            update_graphs.replays += 1
+            return _update_phases(seg, gate_reject, gate_augment,
+                                  _Replay(cap, seg))
+
+    @contextlib.contextmanager
+    def _side(self, dev):
+        """Work on the side stream of ``dev``, ordered after the current
+        stream's and before what the current stream does next."""
+        side = self.streams.get(dev)
+        if side is None:
+            side = self.streams[dev] = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            yield
+        cur.wait_stream(side)
+
+    def _capture(self, seg: _Segments, dev) -> _Captured:
+        """The four segments of ``seg``'s layout captured on the side
+        stream into one memory pool (they replay in capture order), on
+        static copies of its fresh inputs. Nothing runs."""
+        update_graphs.captures += 1
+        inputs = [torch.empty_like(t) for t in seg.fresh()]
+        x, P00, P0m, n, z, ids, zmask = inputs
+        K = seg.z.shape[0]
+        decided = (torch.empty(K, dtype=torch.int32, device=dev),
+                   torch.empty(K, dtype=torch.bool, device=dev))
+        body = _Segments(seg.state._replace(x=x, P00=P00, P0m=P0m, n=n), z,
+                         ids, zmask, seg.R, seg.Re, seg.known, seg.shard)
+        steps = (body.associate, lambda: body.gain(*decided), body.pmm,
+                 body.augment)
+        graphs = [torch.cuda.CUDAGraph() for _ in steps]
+        pool = torch.cuda.graph_pool_handle()
+        outs = []
+        with self._side(dev):
+            for graph, step in zip(graphs, steps):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outs.append(step())
+                finally:
+                    graph.capture_end()
+        out = outs[3]
+        return _Captured(graphs, inputs, decided, outs[0],
+                         (out.x, out.P00, out.P0m, out.n),
+                         (body.Pjj, body.gained))
+
+
+_GRAPHS = _UpdateGraphs()
 
 
 # ---------------------------------------------------------------------------

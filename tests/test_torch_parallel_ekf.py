@@ -307,6 +307,19 @@ def test_capacity_padding_on_four_ranks(ekf_world):
                                    atol=5e-3)
 
 
+def test_mesh_ranks_update_eagerly(ekf_world, streams):
+    """Every update on the gloo ranks, on meshes of four ranks and of
+    one and with no mesh, runs the segments eagerly (a mesh rank's
+    collectives stay out of CUDA graphs; the CPU has none): all counted
+    in ``update_graphs.eager``, none replayed or captured."""
+    cfg, _ = tw.port_world(PADDING["world"])
+    updates = (sum(len(streams[name]) for name in MESH_CASES)
+               + PADDING["ticks"] // cfg.steps_per_observe
+               + 2 * len(streams["assoc-unknown"][:60]))
+    for world in ekf_world:
+        assert world["graphs"] == dict(replays=0, captures=0, eager=updates)
+
+
 def test_one_rank_mesh_equals_no_mesh(ekf_world):
     """On each rank, a mesh of that rank alone and no mesh: the same
     states, bit for bit, with the fold arm and pending terms."""

@@ -320,14 +320,18 @@ def ekf_world(rank: int, *, drives, padding, single) -> dict:
     n_defer, the predicts after it) fed to the estimator; ``padding``
     (a synthetic world whose capacity is no multiple of S) through
     Runner; and ``single``, a drive on a mesh of this rank alone and on
-    no mesh, whose states must be equal bit for bit."""
+    no mesh, whose states must be equal bit for bit. ``graphs``: the
+    rank's count of updates replayed, captured and run eagerly
+    (``update_graphs``) over all of it."""
     from slam_tpu_torch.parallel.ekf import (
         ShardedEkfSlam,
         sharded_state_to_numpy,
+        update_graphs,
     )
     from slam_tpu_torch.parallel.mesh import make_mesh
     from slam_tpu_torch.runtime import Runner
 
+    graphs0 = dict(vars(update_graphs))
     mesh = make_mesh(axis="l")
     out = {"drives": []}
     for case in drives:
@@ -356,6 +360,7 @@ def ekf_world(rank: int, *, drives, padding, single) -> dict:
                                   single["extra"])
         states.append(dict(sharded_state_to_numpy(st), poses=poses))
     out["single"] = states
+    out["graphs"] = {k: v - graphs0[k] for k, v in vars(update_graphs).items()}
     return out
 
 
