@@ -43,6 +43,7 @@ from slam_tpu_torch.models.particles import ParticleState
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
 from slam_tpu_torch.ops.kernels import fs2_predict_multi, fs2_refine
+from slam_tpu_torch.spans import span
 
 _PV_JITTER = 1e-9
 
@@ -166,12 +167,16 @@ def fs2_observe(state: ParticleState, z, ids, zmask, R, eps
     """The FastSLAM 2 update up to the resample: association, the
     proposal (``fs2_propose``), then the likelihood, the feature updates
     and the new features at the sampled pose (``fastslam1.fs1_observe``,
-    in place). The sharded filter (``parallel.filter``) follows it with
+    in place), in the spans ``fs2.associate``, ``fs2.propose`` and
+    ``fs2.map``. The sharded filter (``parallel.filter``) follows it with
     its collective resample."""
-    slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
-    gathered = rbpf.gather_landmarks(state, slot)
-    state = fs2_propose(state, z, zmask, matched, gathered, R, eps)
-    return fs1_observe(state, z, ids, slot, matched, is_new, R)
+    with span("fs2.associate"):
+        slot, matched, is_new = rbpf.associate_slots(state, ids, zmask)
+        gathered = rbpf.gather_landmarks(state, slot)
+    with span("fs2.propose"):
+        state = fs2_propose(state, z, zmask, matched, gathered, R, eps)
+    with span("fs2.map"):
+        return fs1_observe(state, z, ids, slot, matched, is_new, R)
 
 
 def fs2_update(state: ParticleState, z, ids, zmask, R, n_min: float, eps,
@@ -200,14 +205,15 @@ class FastSlam2(FastSlam1):
     def predict(self, state, generator, vn, gn, phi_true) -> ParticleState:
         """One control tick: pose and covariance propagation; under
         SWITCH_HEADING_KNOWN also the per-particle heading update
-        against the true heading."""
+        against the true heading, in the span ``fs2.heading``."""
         cfg = self.config
         state = fs2_predict(state, generator, vn, gn, self.Q,
                             wheelbase=cfg.WHEELBASE, dt=cfg.DT_CONTROLS,
                             add_noise=bool(cfg.SWITCH_PREDICT_NOISE))
         if cfg.SWITCH_HEADING_KNOWN:
-            state = rbpf.observe_heading_particles(state, phi_true,
-                                                   cfg.sigmaT)
+            with span("fs2.heading"):
+                state = rbpf.observe_heading_particles(state, phi_true,
+                                                       cfg.sigmaT)
         return state
 
     def _predict_multi(self, state: ParticleState, generator, controls
