@@ -38,8 +38,13 @@ Phases, in order; any failure raises and exits non-zero:
    both arms of the heading against its twin run in float64 (each
    output's error at most twice the eager float32 code's), timed beside
    the twin (the eager code, ~77 launches), with its wrapper's host time
-   a call and the estimator's whole predict call by the host clock.
-   Gathers, K6, K6b and S1 must be bit-equal to their twins (the
+   a call and the estimator's whole predict call by the host clock; F2,
+   FastSLAM 2's predict tick with the heading known, at P=2^17 and
+   2^17 + 37 on both arms of the heading and of the noise, Pv zero and
+   not, and across +-pi, timed on the heading-known, noise-off arm
+   beside its twin (the eager tick, ~195 launches), with the same two
+   host times.
+   Gathers, K6, K6b, F2 and S1 must be bit-equal to their twins (the
    predicts and S1 keep the twins' operation order, and the sweep below
    holds the predicts' sincosf and the fast wrap to sinf, cosf and the
    fmodf wrap on every float32 bit pattern); the other float outputs
@@ -83,8 +88,8 @@ Phases, in order; any failure raises and exits non-zero:
        4, 5: K5 and K6, and not K2 or G1;
    then FastSLAM 2 through Runner with -method FASTSLAM2:
    (e) dense200 (heading known), P = 100, 2000 ticks, seeds 3, 4, 5:
-       K3, K2 once per superstep and G1, and not K4, K6b, G2, K5 or K6;
-       one host sync per superstep;
+       K3, K2 once per superstep, F2 once per tick and G1, and not K4,
+       K6b, G2, K5 or K6; one host sync per superstep;
    (f) the JAX package's fastslam2_1m world (heading unknown,
        synthetic_map(35, 17, radius=100)), P = 2^20, 1024 ticks, seeds
        3, 4, 5: K6b once per superstep, K3, K4 and G2, and not K2, G1,
@@ -326,6 +331,11 @@ OPS_TICK_FS2 = 115   # K6b's covariance and bicycle step, per (tick, p)
 OPS_TICK_SIM = 70    # S1's steering, truth, controls and odometry, a tick
 OPS_COLUMN_E1 = 26   # E1's heading arm per map column (in double)
 OPS_CHAIN_E1 = 300   # E1's 3x3 chain, once a block
+# F2 per particle: the controls (8), fs2_terms (16 and a sincosf),
+# K6b's covariance and bicycle step (OPS_TICK_FS2) and the heading
+# update (three divides, two wraps, the gain and the six Joseph terms:
+# ~75).
+OPS_TICK_F2 = 215
 # S1's drives: the 4000-tick webmap drive of its card test, T = 8 a
 # launch; and the long launches whose device times give its latency.
 SIM_SUPERSTEPS, SIM_LONG = 500, (64, 256)
@@ -374,6 +384,9 @@ KERNELS = {
     "E1": ("slam_tpu_torch/csrc/ekf_predict.cu",
            "none: the block EKF's predict tick (parallel/ekf.py; XLA's in "
            "the JAX package)"),
+    "F2": ("slam_tpu_torch/csrc/predict.cu",
+           "none: FastSLAM 2's predict tick with the heading known "
+           "(models/fastslam2.py; XLA's in the JAX package)"),
 }
 
 
@@ -474,6 +487,7 @@ def check_kernels(dev) -> dict:
     results["K1"] = check_k1(dev, rng, g)
     results["S1"] = check_sim_control(dev, g)
     results["E1"] = check_ekf_predict(dev, g)
+    results["F2"] = check_fs2_tick(dev, g)
     return results
 
 
@@ -536,6 +550,70 @@ def check_ekf_predict(dev, g) -> dict:
                 ops=OPS_COLUMN_E1 * L2 + OPS_CHAIN_E1, errors=st["errors"],
                 wrapper_host_us=wrapper_us, predict_host_us=predict_us,
                 **times)
+
+
+def check_fs2_tick(dev, g) -> dict:
+    """F2 bit for bit against its twin (the eager tick on the card) at P =
+    2^17 and a ragged P, on both arms of the heading and of the noise,
+    with Pv zero and not, and across +-pi; then timed on the FastSLAM 2
+    cell's arm (the heading known, the noise off) beside the twin (~195
+    launches); its wrapper's host time a call, and that of the
+    estimator's whole predict (``FastSlam2.predict``, the normals' draw
+    included, as Runner calls it once a tick), by the host clock."""
+    import torch
+
+    from slam_tpu_torch.ops.kernels import predict as kp
+
+    err, n = 0.0, 0
+    for P in (P_LARGE, P_K2_RAGGED):
+        for heading_known in (True, False):
+            for noise in (False, True):
+                for pv_zero in (False, True):
+                    est, state, ticks = selfcheck.fs2_tick_case(
+                        dev, g, P, heading_known=heading_known, noise=noise,
+                        pv_zero=pv_zero)
+                    got, want = selfcheck.fs2_tick_pair(est, state, ticks,
+                                                        seed=n)
+                    torch.cuda.synchronize()
+                    err = max(err, selfcheck._bit_equal(
+                        f"F2 P={P} heading={heading_known} noise={noise} "
+                        f"Pv zero={pv_zero}", got, want))
+                    n += 1
+    for start in (math.pi - 5e-3, -math.pi + 5e-3):
+        est, state, (vn, _, phi) = selfcheck.fs2_tick_case(
+            dev, g, P_LARGE, heading=start, wheelbase=2.0)
+        gn = torch.tensor(math.copysign(0.5, start), dtype=torch.float32,
+                          device=dev)
+        got, want = selfcheck.fs2_tick_pair(est, state, (vn, gn, phi), n)
+        torch.cuda.synchronize()
+        selfcheck._bit_equal(f"F2 through +-pi from {start}", got, want)
+        check(bool((torch.sign(got[0][2]) != math.copysign(1.0, start))
+                   .all()), "F2: the headings did not cross +-pi")
+        n += 1
+    print(f"kernel F2: bit-equal to its twin in {n} cases (P = {P_LARGE} "
+          f"and {P_K2_RAGGED}; heading, noise, Pv zero; across +-pi)",
+          flush=True)
+    est, state, ticks = selfcheck.fs2_tick_case(dev, g, P_LARGE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eps = torch.randn((2, P_LARGE), generator=gen, device=dev)
+    kw = dict(wheelbase=est.config.WHEELBASE, dt=est.config.DT_CONTROLS,
+              r=est.config.sigmaT ** 2, add_noise=False, heading_known=True)
+    a = state._replace(xv=state.xv.clone(), Pv=state.Pv.clone())
+    b = state._replace(xv=state.xv.clone(), Pv=state.Pv.clone())
+
+    def kernel():
+        kp.fs2_predict_tick(a.xv, a.Pv, eps, *ticks, est._chol_q, est._q,
+                            **kw)
+
+    times = measure(kernel, lambda: est._predict_plain(b, gen, *ticks))
+    wrapper_us = host_us(kernel)
+    predict_us = host_us(lambda: est.predict(a, gen, *ticks))
+    print(f"kernel F2 (P={P_LARGE}): wrapper {wrapper_us:.1f} us a call on "
+          f"the host, FastSlam2.predict {predict_us:.1f} us", flush=True)
+    return dict(max_abs_err=err, shape=f"P={P_LARGE}, heading known, noise "
+                "off", bytes=4 * (11 + 9) * P_LARGE + 12,
+                ops=OPS_TICK_F2 * P_LARGE, wrapper_host_us=wrapper_us,
+                predict_host_us=predict_us, **times)
 
 
 def check_sim_control(dev, g) -> dict:
@@ -1311,7 +1389,7 @@ def run_config5_slice(dev, name, P, capacity, n_supersteps, seeds,
         for k in on:
             check(counts[k] > 0, f"{name} seed {seed}: {k} was never "
                   f"launched {counts}")
-        for k in ("K2", "G1", "K3", "K6b", "K1"):
+        for k in ("K2", "G1", "K3", "K6b", "F2", "K1"):
             check(counts[k] == 0, f"{name} seed {seed}: {k} should not "
                   f"run {counts}")
         check(syncs == n_supersteps, f"{name} seed {seed}: {syncs} gate "
@@ -1889,7 +1967,7 @@ def check_ckpt_deferred(dev, tmp) -> dict:
     for k in ("K4", "K5", "K6", "G2"):
         check(counts[k] > 0, f"ckpt-deferred: {k} was never launched "
               f"{counts}")
-    for k in ("K2", "G1", "K3", "K6b", "K1"):
+    for k in ("K2", "G1", "K3", "K6b", "F2", "K1"):
         check(counts[k] == 0, f"ckpt-deferred: {k} should not run {counts}")
     check(counts_resumed["K5"] > 0, "ckpt-deferred: K5 did not run after "
           f"the resume on a pending resample {counts_resumed}")
@@ -2294,13 +2372,13 @@ def check_sharded(dev) -> dict:
         dev, "sharded-fs1", dense200(),
         lambda c, m, P: ShardedFastSlam1(c, m.n_landmarks, mesh, P),
         P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
-        off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+        off=("K2", "K5", "K6", "G1", "K3", "K6b", "F2", "K1"),
         per_superstep=("K4",))
     runs["sharded-fs2-small"] = run_slice(
         dev, "sharded-fs2-small", dense200(),
         lambda c, m, P: ShardedFastSlam2(c, m.n_landmarks, mesh, P),
         P_SMALL, TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
-        off=("K4", "K6b", "G2", "K5", "K6", "K1"),
+        off=("K4", "K6b", "G2", "K5", "K6", "F2", "K1"),
         per_superstep=("K2", "K3"))
     runs["sharded-lm-config5"] = run_slice(
         dev, "sharded-lm-config5",
@@ -2309,7 +2387,7 @@ def check_sharded(dev) -> dict:
         lambda c, m, P: LandmarkShardedFastSlam1(c, m.n_landmarks,
                                                  mesh2, P),
         C5_P, C5_SUPERSTEPS * T_PREDICT, JAX_CONFIG5_ATE_M,
-        on=("K4", "G2"), off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"),
+        on=("K4", "G2"), off=("K2", "K5", "K6", "G1", "K3", "K6b", "F2", "K1"),
         per_superstep=("K4",), seeds=SEEDS[:1])
     for name, run in runs.items():
         check(all(x == 1 for x in run["host_syncs_per_superstep"]),
@@ -2620,7 +2698,7 @@ def check_config5_mesh(dev) -> dict:
     check(r.ba_iters >= 1, "config5-mesh: no BA iteration")
     check(counts["K2"] == counts["S1"] == n and counts["G1"] > 0,
           f"config5-mesh: launches {counts} in {n} supersteps")
-    for k in ("K4", "K5", "K6", "G2", "K3", "K6b", "K1"):
+    for k in ("K4", "K5", "K6", "G2", "K3", "K6b", "F2", "K1"):
         check(counts[k] == 0, f"config5-mesh: {k} should not run {counts}")
     check(syncs == n, f"config5-mesh: {syncs} gate syncs in {n} supersteps")
     for key, anchor in (("ate_filter", JAX_CONFIG5_ATE_M),
@@ -2698,7 +2776,7 @@ def check_ckpt_sharded(dev, tmp) -> dict:
     same_run("ckpt-sharded", full, resumed)
     for k in ("K4", "G2"):
         check(counts[k] > 0, f"ckpt-sharded: {k} was never launched {counts}")
-    for k in ("K2", "G1", "K5", "K6", "K3", "K6b", "K1"):
+    for k in ("K2", "G1", "K5", "K6", "K3", "K6b", "F2", "K1"):
         check(counts[k] == 0, f"ckpt-sharded: {k} should not run {counts}")
     out = edge_slice(counts, 2 * N, P=P_CKPT_SHARDED, supersteps=N,
                      cut=SMALL_CUT, stream_state_bytes=int(streams.shape[1]),
@@ -2853,14 +2931,14 @@ def main() -> int:
 
     small = run_slice(dev, "eager-small", dense200(), "eager", P_SMALL,
                       TICKS, JAX_ANCHOR_ATE_M, on=("K2", "G1"),
-                      off=("K4", "K5", "K6", "G2", "K3", "K6b", "K1"),
+                      off=("K4", "K5", "K6", "G2", "K3", "K6b", "F2", "K1"),
                       per_superstep=("K2",))
     check(all(s == 1 for s in small["host_syncs_per_superstep"]),
           "eager-small: host syncs per superstep "
           f"{small['host_syncs_per_superstep']}")
     large = run_slice(dev, "eager-large", dense200(), "eager", P_LARGE,
                       TICKS, JAX_ANCHOR_ATE_M, on=("K4", "G2"),
-                      off=("K2", "K5", "K6", "G1", "K3", "K6b", "K1"))
+                      off=("K2", "K5", "K6", "G1", "K3", "K6b", "F2", "K1"))
     c5 = run_config5_slice(dev, "config5", C5_P, C5_CAPACITY,
                            C5_SUPERSTEPS, SEEDS, JAX_CONFIG5_ATE_M,
                            JAX_CONFIG5_REFINED_ATE_M, on=("K5", "G2"))
@@ -2869,21 +2947,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     deferred = run_slice(dev, "deferred-large", dense200(), "deferred",
                          P_LARGE, TICKS, JAX_ANCHOR_ATE_M, on=("K5", "K6"),
-                         off=("K2", "G1", "K3", "K6b", "K1"))
+                         off=("K2", "G1", "K3", "K6b", "F2", "K1"))
     fs2_small = run_slice(dev, "fs2-small", dense200(), "fs2", P_SMALL,
-                          TICKS, JAX_FS2_ANCHOR_ATE_M, on=("K3", "K2", "G1"),
+                          TICKS, JAX_FS2_ANCHOR_ATE_M,
+                          on=("K3", "K2", "G1", "F2"),
                           off=("K4", "K6b", "G2", "K5", "K6", "K1"),
                           per_superstep=("K2",))
     check(all(s == 1 for s in fs2_small["host_syncs_per_superstep"]),
           "fs2-small: host syncs per superstep "
           f"{fs2_small['host_syncs_per_superstep']}")
+    # The heading known: F2 once a tick.
+    check(fs2_small["launches"]["F2"] == len(SEEDS) * TICKS,
+          f"fs2-small: F2 launched {fs2_small['launches']['F2']} times in "
+          f"{len(SEEDS) * TICKS} ticks")
     from slam_tpu_torch.sim.simulator import Simulator
     print(f"fs2-1m world: max_obs K = {Simulator(*fs2_webmap()).max_obs}",
           flush=True)
     fs2_1m = run_slice(dev, "fs2-1m", fs2_webmap(), "fs2", FS2_P,
                        FS2_TICKS, JAX_FS2_WEBMAP_ATE_M,
                        on=("K6b", "K3", "K4", "G2"),
-                       off=("K2", "G1", "K5", "K6", "K1"),
+                       off=("K2", "G1", "K5", "K6", "F2", "K1"),
                        per_superstep=("K6b",))
     check(all(s == 1 for s in fs2_1m["host_syncs_per_superstep"]),
           "fs2-1m: host syncs per superstep "
@@ -2962,7 +3045,7 @@ def main() -> int:
               "shape")
     table = []
     for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2",
-                 "S1", "E1"):
+                 "S1", "E1", "F2"):
         st = kernel_stats[name]
         # S1 runs in every slice with a simulator, the EKFs' too; E1 in
         # the block EKF's.
@@ -2999,6 +3082,9 @@ def main() -> int:
         if name == "E1":
             row.update({f: st[f] for f in ("wrapper_host_us",
                                            "predict_host_us", "errors")})
+        if name == "F2":
+            row.update({f: st[f] for f in ("wrapper_host_us",
+                                           "predict_host_us")})
         if name in sass:
             row.update({f: st[f] for f in ("issue_bound_ms", "issue_share",
                                            "sass", "sm_clock_mhz")},

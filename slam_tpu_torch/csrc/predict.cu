@@ -1,5 +1,6 @@
 // K6 and K6b, the multi-tick predicts of FastSLAM 1 and FastSLAM 2
-// with the random draws made in the kernel.
+// with the random draws made in the kernel; F2, FastSLAM 2's predict
+// tick with the heading known (at the end of this header).
 //
 // K6 replaces slam_tpu/ops/pallas/kernels.py:_predict_kernel and
 // _sample_vg (entry point fs1_predict_multi_tpu); K6b replaces
@@ -68,6 +69,23 @@
 // per tick (K6b: some 60), and 8 ticks per superstep, with one launch.
 // The seed words are read through a pointer, so the host never waits
 // for the generator that drew them.
+//
+// F2 (slam_fs2_predict_tick) is the tick K6b cannot take: with the
+// heading known, FastSLAM 2 follows every tick with the per-particle
+// heading update, which is not a no-op between observations (Pv != 0). No
+// TPU kernel stands behind it (the JAX package leaves the per-tick
+// predict to XLA); the port ran it eagerly, 208 ATen calls and 195
+// launches a tick. F2 is one launch a tick, one thread a particle: the
+// controls from the tick's normals eps [2, P], which the caller draws
+// with torch.randn as rbpf.py:sample_controls does (so the run's random
+// stream stays the twin's), K6b's fs2_terms and fs2_tick, then with the
+// heading known the scalar Joseph update in the operation order of
+// rbpf.py:observe_heading_particles. It is bit-equal to its twin (the
+// eager tick, models/fastslam2.py:FastSlam2._predict_plain) on the card.
+// vn, gn and phi are read through pointers from 0-d tensors, so the host
+// reads nothing. Bound: bytes and the launch, not the instruction rate:
+// it reads 11 floats a particle (xv, Pv, eps) and writes 9, 10.5 MB at
+// 2^17 (3.1 us at 3.35 TB/s), against ~215 operations a thread.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,25 +195,29 @@ __global__ void __launch_bounds__(kThreads) fs1_predict_multi_kernel(
 
 // What a FastSLAM 2 tick needs of its controls: V dt, G, the turn, the
 // third row g2 = (dt sin G / WB, V dt cos G / WB) of Gu, Q g2' as
-// (u0, u1), and g2 Q g2'.
+// (u0, u1), and g2 Q g2'. ATen divides a CUDA tensor by a host scalar as
+// a product with the scalar's float32 reciprocal (div_true_kernel_cuda),
+// so each "/ WB" of the twins is taken here as a product with inv_wb =
+// 1 / WB, rounded to float32 by the launcher, as the twins compute it on
+// the card (for a power-of-two WB both ways give the same bits).
 struct Fs2Terms {
   float vdt, G, dth, ff, g20, g21, u0, u1;
 };
 
 __device__ __forceinline__ Fs2Terms fs2_terms(float V, float G, float q00,
                                               float q01, float q11,
-                                              float wheelbase, float dt) {
+                                              float inv_wb, float dt) {
   Fs2Terms u;
   float sg, cg;
   sin_cos(G, sg, cg);
   u.vdt = V * dt;
   u.G = G;
-  u.g20 = dt * sg / wheelbase;
-  u.g21 = u.vdt * cg / wheelbase;
+  u.g20 = dt * sg * inv_wb;
+  u.g21 = u.vdt * cg * inv_wb;
   u.u0 = q00 * u.g20 + q01 * u.g21;
   u.u1 = q01 * u.g20 + q11 * u.g21;
   u.ff = u.g20 * u.u0 + u.g21 * u.u1;
-  u.dth = u.vdt * sg / wheelbase;
+  u.dth = u.vdt * sg * inv_wb;
   return u;
 }
 
@@ -238,14 +260,14 @@ template <bool kNoise>
 __global__ void __launch_bounds__(kThreads) fs2_predict_multi_kernel(
     float* __restrict__ xv, float* __restrict__ Pv,
     const int* __restrict__ seed, const float* __restrict__ ctl, float l00,
-    float l10, float l11, float q00, float q01, float q11, float wheelbase,
+    float l10, float l11, float q00, float q01, float q11, float inv_wb,
     float dt, int t0, int T, int P) {
   __shared__ float4 terms[kNoise ? 1 : 2 * kMaxTicks];
   if constexpr (!kNoise) {
     if (threadIdx.x < T) {
       const Fs2Terms u =
           fs2_terms(ctl[2 * threadIdx.x], ctl[2 * threadIdx.x + 1], q00, q01,
-                    q11, wheelbase, dt);
+                    q11, inv_wb, dt);
       terms[2 * threadIdx.x] = make_float4(u.vdt, u.G, u.dth, u.ff);
       terms[2 * threadIdx.x + 1] = make_float4(u.g20, u.g21, u.u0, u.u1);
     }
@@ -269,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) fs2_predict_multi_kernel(
       float V, G;
       sample_vg((uint32_t)p, (uint32_t)(t0 + t), ks, ctl[2 * t],
                 ctl[2 * t + 1], l00, l10, l11, V, G);
-      u = fs2_terms(V, G, q00, q01, q11, wheelbase, dt);
+      u = fs2_terms(V, G, q00, q01, q11, inv_wb, dt);
     } else {
       const float4 v = terms[2 * t];
       const float4 w = terms[2 * t + 1];
@@ -284,6 +306,68 @@ __global__ void __launch_bounds__(kThreads) fs2_predict_multi_kernel(
     }
     fs2_tick(u, q00, q01, q11, dt, x, y, th, S);
   }
+  xv[p] = x;
+  xv[P + p] = y;
+  xv[2 * P + p] = th;
+  Pv[p] = S.a;
+  Pv[P + p] = S.b;
+  Pv[2 * P + p] = S.c;
+  Pv[3 * P + p] = S.d;
+  Pv[4 * P + p] = S.e;
+  Pv[5 * P + p] = S.f;
+}
+
+// F2's heading update: the scalar Joseph update of (x, y, th) and S by
+// the true heading phi with variance r, in the operation order of
+// slam_tpu_torch/models/rbpf.py:observe_heading_particles. A no-op while
+// S == 0 (every gain is 0 / r).
+__device__ __forceinline__ void heading_update(float phi, float r, float& x,
+                                               float& y, float& th,
+                                               slam::Sym3& S) {
+  const float s = S.f + r;
+  const float k0 = S.c / s;
+  const float k1 = S.e / s;
+  const float k2 = S.f / s;
+  const float v = slam::wrap_angle_fast(phi - th);
+  x = x + k0 * v;
+  y = y + k1 * v;
+  th = slam::wrap_angle_fast(th + k2 * v);
+  const float q2 = 1.0f - k2;
+  const slam::Sym3 o = S;
+  S.a = o.a - 2.0f * k0 * o.c + k0 * k0 * o.f + r * k0 * k0;
+  S.b = o.b - k0 * o.e - k1 * o.c + k0 * k1 * o.f + r * k0 * k1;
+  S.c = q2 * (o.c - k0 * o.f) + r * k0 * k2;
+  S.d = o.d - 2.0f * k1 * o.e + k1 * k1 * o.f + r * k1 * k1;
+  S.e = q2 * (o.e - k1 * o.f) + r * k1 * k2;
+  S.f = q2 * q2 * o.f + r * k2 * k2;
+}
+
+// F2: one FastSLAM 2 predict tick, one thread a particle: the controls
+// (V, G) = (vn, gn) + on (l00 e0, l10 e0 + l11 e1) as
+// rbpf.py:sample_controls forms them from the tick's normals (on is 1 or
+// 0: with the noise off the product is still taken, as there), K6b's
+// covariance and bicycle step, then with kHeading the heading update.
+template <bool kHeading>
+__global__ void __launch_bounds__(kThreads) fs2_predict_tick_kernel(
+    float* __restrict__ xv, float* __restrict__ Pv,
+    const float* __restrict__ eps, const float* __restrict__ vn,
+    const float* __restrict__ gn, const float* __restrict__ phi, float l00,
+    float l10, float l11, float q00, float q01, float q11, float inv_wb,
+    float dt, float on, float r, int P) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const float e0 = eps[p];
+  const float e1 = eps[P + p];
+  const float V = *vn + on * (l00 * e0);
+  const float G = *gn + on * (l10 * e0 + l11 * e1);
+  float x = xv[p];
+  float y = xv[P + p];
+  float th = xv[2 * P + p];
+  slam::Sym3 S{Pv[p],         Pv[P + p],     Pv[2 * P + p],
+               Pv[3 * P + p], Pv[4 * P + p], Pv[5 * P + p]};
+  fs2_tick(fs2_terms(V, G, q00, q01, q11, inv_wb, dt), q00, q01, q11, dt, x,
+           y, th, S);
+  if constexpr (kHeading) heading_update(*phi, r, x, y, th, S);
   xv[p] = x;
   xv[P + p] = y;
   xv[2 * P + p] = th;
@@ -368,8 +452,28 @@ extern "C" int slam_fs2_predict_multi(float* xv, float* Pv, const int* seed,
   for (int t0 = 0; t0 < T; t0 += kMaxTicks) {
     kernel<<<blocks, kThreads, 0, stream>>>(
         xv, Pv, seed, controls + 2 * t0, l00, l10, l11, q00, q01, q11,
-        wheelbase, dt, t0, min(kMaxTicks, T - t0), P);
+        1.0f / wheelbase, dt, t0, min(kMaxTicks, T - t0), P);
   }
+  return (int)cudaGetLastError();
+}
+
+// F2: one tick at P particles, in place on xv [3, P] and Pv [6, P], from
+// the tick's standard normals eps [2, P]; vn, gn and (with heading_known)
+// phi are read from 0-d device tensors.
+extern "C" int slam_fs2_predict_tick(float* xv, float* Pv, const float* eps,
+                                     const float* vn, const float* gn,
+                                     const float* phi, float l00, float l10,
+                                     float l11, float q00, float q01,
+                                     float q11, float wheelbase, float dt,
+                                     float on, float r, int heading_known,
+                                     int P, cudaStream_t stream) {
+  if (P <= 0) return 0;
+  const int blocks = (P + kThreads - 1) / kThreads;
+  const auto kernel = heading_known ? fs2_predict_tick_kernel<true>
+                                    : fs2_predict_tick_kernel<false>;
+  kernel<<<blocks, kThreads, 0, stream>>>(xv, Pv, eps, vn, gn, phi, l00, l10,
+                                          l11, q00, q01, q11,
+                                          1.0f / wheelbase, dt, on, r, P);
   return (int)cudaGetLastError();
 }
 

@@ -28,10 +28,16 @@ With the heading unknown, ``FastSlam2`` has ``predict_multi``, all the
 control ticks of a superstep in one K6b launch (its twin on the CPU).
 With the heading known it has none: the per-tick heading update is not
 a no-op for FastSLAM 2 (Pv != 0 between observations), and the runner
-would skip it on the multi-tick path.
+would skip it on the multi-tick path. Its per-tick ``predict`` is then
+one F2 launch on the card (``ops.kernels.fs2_predict_tick``, after one
+``torch.randn`` for the tick's control normals, the draw the eager tick
+makes) and the eager tick elsewhere (``FastSlam2._predict_plain``, F2's
+twin); ``fs2_predict_ticks`` counts the ticks each ran.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -42,10 +48,18 @@ from slam_tpu_torch.models.fastslam1 import FastSlam1, fs1_observe
 from slam_tpu_torch.models.particles import ParticleState
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
-from slam_tpu_torch.ops.kernels import fs2_predict_multi, fs2_refine
+from slam_tpu_torch.ops.kernels import (
+    fs2_predict_multi,
+    fs2_predict_tick,
+    fs2_refine,
+)
 from slam_tpu_torch.spans import span
 
 _PV_JITTER = 1e-9
+
+# ``FastSlam2.predict``'s ticks: one F2 launch each (``fused``, on the
+# card) or the eager twin's (``eager``, elsewhere).
+fs2_predict_ticks = SimpleNamespace(fused=0, eager=0)
 
 
 def propagate_pose_covariance(xv, Pv, V, G, Q, wheelbase: float,
@@ -201,11 +215,40 @@ class FastSlam2(FastSlam1):
         super().__init__(config, n_map_landmarks, device=device)
         if not config.SWITCH_HEADING_KNOWN:
             self.predict_multi = self._predict_multi
+        # F2's host floats: chol(Q) and Q as the eager tick rounds them.
+        self._chol_q = rbpf.control_noise_factor(self.Q)
+        self._q = pk.sym2_host(self.Q)
 
     def predict(self, state, generator, vn, gn, phi_true) -> ParticleState:
         """One control tick: pose and covariance propagation; under
         SWITCH_HEADING_KNOWN also the per-particle heading update
-        against the true heading, in the span ``fs2.heading``."""
+        against the true heading. On the card one F2 launch
+        (``_predict_fused``), elsewhere the eager tick (``_predict_plain``)."""
+        if state.xv.is_cuda:
+            return self._predict_fused(state, generator, vn, gn, phi_true)
+        return self._predict_plain(state, generator, vn, gn, phi_true)
+
+    def _predict_fused(self, state, generator, vn, gn, phi_true
+                       ) -> ParticleState:
+        """The tick in one F2 launch, in place on the poses and
+        covariances, from the control normals drawn as the eager tick
+        draws them: the same random stream, bit for bit the same tick."""
+        cfg = self.config
+        sigma = cfg.sigmaT
+        eps = rbpf.control_noise(state.n_particles, generator)
+        fs2_predict_tick(state.xv, state.Pv, eps, vn, gn, phi_true,
+                         self._chol_q, self._q, wheelbase=cfg.WHEELBASE,
+                         dt=cfg.DT_CONTROLS, r=sigma * sigma,
+                         add_noise=bool(cfg.SWITCH_PREDICT_NOISE),
+                         heading_known=bool(cfg.SWITCH_HEADING_KNOWN))
+        fs2_predict_ticks.fused += 1
+        return state
+
+    def _predict_plain(self, state, generator, vn, gn, phi_true
+                       ) -> ParticleState:
+        """F2's twin, the eager tick: ``fs2_predict``, then under
+        SWITCH_HEADING_KNOWN the heading update in the span
+        ``fs2.heading``."""
         cfg = self.config
         state = fs2_predict(state, generator, vn, gn, self.Q,
                             wheelbase=cfg.WHEELBASE, dt=cfg.DT_CONTROLS,
@@ -214,6 +257,7 @@ class FastSlam2(FastSlam1):
             with span("fs2.heading"):
                 state = rbpf.observe_heading_particles(state, phi_true,
                                                        cfg.sigmaT)
+        fs2_predict_ticks.eager += 1
         return state
 
     def _predict_multi(self, state: ParticleState, generator, controls

@@ -47,11 +47,16 @@ def control_noise_factor(Q) -> tuple[float, float, float]:
     return float(L[0, 0]), float(L[1, 0]), float(L[1, 1])
 
 
+def control_noise(n: int, generator: torch.Generator) -> torch.Tensor:
+    """A tick's standard normal draw for the control sample, eps [2, n]."""
+    return torch.randn((2, n), generator=generator, device=generator.device)
+
+
 def sample_controls(vn, gn, Q, n: int, generator: torch.Generator,
                     add_noise: bool = True):
     """Per-particle control sample ~ N((vn, gn), Q): ([n], [n])."""
     l00, l10, l11 = control_noise_factor(Q)
-    eps = torch.randn((2, n), generator=generator, device=generator.device)
+    eps = control_noise(n, generator)
     n0 = l00 * eps[0]
     n1 = l10 * eps[0] + l11 * eps[1]
     on = float(add_noise)

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the port, with their plain PyTorch
 twins (counterpart: slam_tpu.ops.pallas). Every TPU kernel of the JAX
-package has one; the simulator (S1) and the block EKF (E1) have their
-own:
+package has one; the simulator (S1), the block EKF (E1) and FastSLAM 2's
+predict tick (F2) have their own:
 
 =====  ===========================  ===================================
 id     wrapper                      replaces
@@ -17,6 +17,8 @@ G1     gather.sorted_gather_multi   gather.py:sorted_gather_multi
 G2     gather.bounds_gather_multi   gather.py:bounds_gather_multi
 S1     vehicle.control_multi        (no kernel: the simulator's ticks)
 E1     ekf.ekf_predict_tick         (no kernel: the block EKF's predict)
+F2     predict.fs2_predict_tick     (no kernel: FastSLAM 2's predict tick
+                                    with the heading known)
 =====  ===========================  ===================================
 """
 
@@ -35,6 +37,7 @@ from slam_tpu_torch.ops.kernels.kernels import (
 from slam_tpu_torch.ops.kernels.predict import (
     fs1_predict_multi,
     fs2_predict_multi,
+    fs2_predict_tick,
 )
 from slam_tpu_torch.ops.kernels.vehicle import control_multi
 
@@ -50,6 +53,7 @@ WRAPPERS = {
     "G2": bounds_gather_multi,
     "S1": control_multi,
     "E1": ekf_predict_tick,
+    "F2": fs2_predict_tick,
 }
 
 
@@ -64,6 +68,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "bounds_gather_multi", "control_multi",
-           "ekf_predict_tick", "fs1_predict_multi", "fs2_predict_multi", "fs2_refine",
+           "ekf_predict_tick", "fs1_predict_multi", "fs2_predict_multi",
+           "fs2_predict_tick", "fs2_refine",
            "fused_update", "jacobians", "launch_counts", "observe",
            "reset_launch_counts", "resample_update", "sorted_gather_multi"]

@@ -61,6 +61,7 @@ SIGNATURES = {
     "slam_fs1_resample_update": [_P] * 12 + [_F] * 3 + [_I] * 4 + [_P],
     "slam_fs1_predict_multi": [_P] * 3 + [_F] * 5 + [_I] * 3 + [_P],
     "slam_fs2_predict_multi": [_P] * 4 + [_F] * 8 + [_I] * 3 + [_P],
+    "slam_fs2_predict_tick": [_P] * 6 + [_F] * 10 + [_I] * 2 + [_P],
     "slam_predict_fast_math_sweep": [_P, _P],
     "slam_fs2_refine": [_P] * 9 + [_F] * 3 + [_I] * 2 + [_P] * 2 + [_P],
     "slam_jacobians": [_P] * 6 + [_F] * 3 + [_I] * 2 + [_P] + [_P],

@@ -2,7 +2,9 @@
 (K6), or FastSLAM 2 predict with its pose covariance (K6b), in one
 launch, with the random draws made inside the kernel (counterparts:
 slam_tpu.ops.pallas.kernels.fs1_predict_multi_tpu and
-fs2_predict_multi_tpu).
+fs2_predict_multi_tpu). F2: one FastSLAM 2 predict tick with the
+heading update in one launch, from normals the caller drew
+(``fs2_predict_tick``; no TPU kernel stands behind it).
 
 The TPU kernels draw from the TPU's hardware PRNG. The port draws from
 Philox4x32-10 (``csrc/philox.cuh``): particle p at tick t takes words 0
@@ -20,6 +22,7 @@ held to the twins' way on every float32 by ``fast_math_sweep``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -207,6 +210,66 @@ def fs2_predict_multi(xv, Pv, seed, controls, Q, *, wheelbase: float,
 
 
 fs2_predict_multi.launches = 0
+
+
+F2_NAMES = ("xv", "Pv", "eps", "vn", "gn", "phi")
+
+
+@functools.lru_cache(maxsize=64)
+def _check_tick_shapes(shapes: tuple) -> None:
+    """Raise unless ``shapes`` (of F2_NAMES, in order) are xv [3, P], Pv
+    [6, P], eps [2, P] and 0-d vn, gn and phi. Cached: a set of shapes
+    that passed once passes again."""
+    xv, Pv, eps, *scalars = shapes
+    ok = (len(xv) == 2 and xv[0] == 3 and Pv == (6, xv[1])
+          and eps == (2, xv[1]) and all(s == () for s in scalars))
+    _require(ok, "fs2_predict_tick: shapes "
+             f"{dict(zip(F2_NAMES, map(tuple, shapes)))} do not match xv "
+             "[3, P], Pv [6, P], eps [2, P] and 0-d vn, gn and phi")
+
+
+def fs2_predict_tick(xv, Pv, eps, vn, gn, phi, chol_q, q, *,
+                     wheelbase: float, dt: float, r: float,
+                     add_noise: bool, heading_known: bool):
+    """F2: one FastSLAM 2 predict tick on the card, in place on xv [3, P]
+    and Pv [6, P], as ``models.fastslam2.FastSlam2._predict_plain``
+    computes it: the controls (vn, gn) + on (l00 e0, l10 e0 + l11 e1)
+    from the tick's standard normals eps [2, P], on = 1 with
+    ``add_noise`` and 0 without; the pose and covariance step; then with
+    ``heading_known`` the heading update against phi, of variance r.
+    vn, gn and phi are 0-d float32 tensors (phi read only with the
+    heading); ``chol_q`` (l00, l10, l11) of chol(Q) and ``q`` (q00, q01,
+    q11) of Q, host floats. The wrapper's host time is most of a tick's
+    cost, so it checks per call only what can differ between calls
+    (dtypes, contiguity, devices) and the shapes once per set of shapes.
+    A CPU tensor is refused: there the twin runs the tick."""
+    ts = (xv, Pv, eps, vn, gn, phi)
+    if not heading_known:
+        ts = ts[:-1]
+    for name, t in zip(F2_NAMES, ts):
+        if not (isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                and t.is_contiguous()):
+            raise ValueError(f"fs2_predict_tick: {name} must be a "
+                             "contiguous float32 tensor")
+    _check_tick_shapes(tuple(t.shape for t in ts) + ((),) * (6 - len(ts)))
+    dev = xv.device
+    if dev.type != "cuda" or not all(t.device == dev for t in ts):
+        raise ValueError(
+            "fs2_predict_tick: the tensors lie on "
+            f"{[str(t.device) for t in ts]}, not on one CUDA device (off "
+            "the card the plain twin, FastSlam2._predict_plain, runs the "
+            "tick)")
+    err = build.load_library().slam_fs2_predict_tick(
+        xv.data_ptr(), Pv.data_ptr(), eps.data_ptr(), vn.data_ptr(),
+        gn.data_ptr(), phi.data_ptr() if heading_known else None, *chol_q,
+        *q, wheelbase, dt, float(add_noise), r, int(heading_known),
+        xv.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "slam_fs2_predict_tick")
+    fs2_predict_tick.launches += 1
+    return xv, Pv
+
+
+fs2_predict_tick.launches = 0
 
 
 def fast_math_sweep(device) -> dict:

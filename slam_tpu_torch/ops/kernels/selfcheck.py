@@ -1,4 +1,4 @@
-"""The kernel gate: each of the eleven CUDA kernels against its plain
+"""The kernel gate: each of the twelve CUDA kernels against its plain
 PyTorch twin, once, on seeded inputs at the shapes the bench lines give
 it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
@@ -7,8 +7,8 @@ it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
 What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
 
-- G1, G2, K6, K6b and S1 bit-equal to their twins (the gathers copy;
-  the predicts and the simulator's ticks keep the twins' operation
+- G1, G2, K6, K6b, F2 and S1 bit-equal to their twins (the gathers
+  copy; the predicts and the simulator's ticks keep the twins' operation
   order);
 - K5 bit-equal to G2's gather followed by K4 (the same operation order),
   and within TOL of its twin;
@@ -37,6 +37,8 @@ the gate's own code.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -44,6 +46,7 @@ from slam_tpu_torch.config import SlamConfig
 from slam_tpu_torch.geometry import wrap_angle
 from slam_tpu_torch.maps import SlamMap, synthetic_map
 from slam_tpu_torch.models.ekf import full_f32, noise_matrices
+from slam_tpu_torch.models.fastslam2 import FastSlam2
 from slam_tpu_torch.models.particles import init_particles
 from slam_tpu_torch.models.rbpf import associate_known, new_slots
 from slam_tpu_torch.ops import planes as pk
@@ -77,7 +80,8 @@ E1_ERR_RATIO = 2.0
 # fastslam2_webmap: K2, G1) and at P = 2^20 (fastslam1_1m, fastslam2_1m:
 # K4, K5, K6, K6b, K3, G2), and config #5's 96 observations and 192
 # slots at P = 2^20 (config5_composed: K4, K5). K1 lies on no path; it
-# is checked at the webmap's K.
+# is checked at the webmap's K. K1 and F2 run at P_K1 = 2^17, the
+# FastSLAM 2 cell's count.
 WEBMAP = dict(K=9, L=40, n_map=35, live=20, n_match=5, n_new=3)
 CONFIG5 = dict(K=96, L=192, n_map=400, live=150, n_match=70, n_new=20)
 P_SMALL, P_LARGE, P_K1 = 100, 2 ** 20, 2 ** 17
@@ -466,6 +470,67 @@ def check_ekf_predict(dev, g, L, D) -> dict:
                 max_abs_err=err, errors=cases)
 
 
+def fs2_tick_case(dev, g, P, *, heading_known=True, noise=False,
+                  heading=None, pv_zero=False, wheelbase=None):
+    """F2's inputs at P particles: (estimator, state, (vn, gn, phi)). The
+    estimator is ``FastSlam2`` at the configuration's defaults with the
+    two switches (and the wheelbase) given; the state's poses lie ~1 m
+    around (20, -5), their headings uniform over [-pi, pi) or all at
+    ``heading``, their pose covariances those of a filter some ticks
+    after an observation (zero with ``pv_zero``, as right after one);
+    the tick's speed, steer and true heading are 0-d on ``dev`` (with a
+    ``heading``, the true heading 0.8 rad from it away from 0: across
+    +-pi from a heading near it)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    cfg = SlamConfig(SWITCH_HEADING_KNOWN=int(heading_known),
+                     SWITCH_PREDICT_NOISE=int(noise))
+    if wheelbase is not None:
+        cfg = cfg.replace(WHEELBASE=wheelbase)
+    est = FastSlam2(cfg, 8, device=dev)
+    state = est.init(P)
+    xy = torch.tensor([[20.0], [-5.0]], **f32)
+    th = (torch.full((1, P), heading, **f32) if heading is not None else
+          torch.pi * (2.0 * torch.rand((1, P), generator=g, **f32) - 1.0))
+    state.xv.copy_(torch.cat(
+        [xy + torch.randn((2, P), generator=g, **f32), th]))
+    if not pv_zero:
+        A = 0.1 * torch.randn((3, 3, P), generator=g, **f32)
+        S = torch.einsum("ikp,jkp->ijp", A, A)
+        S[2, 2] += 1e-4
+        state.Pv.copy_(torch.stack([S[0, 0], S[0, 1], S[0, 2], S[1, 1],
+                                    S[1, 2], S[2, 2]]))
+    u = torch.randn(3, generator=g, **f32)
+    phi = (torch.tensor(heading + math.copysign(0.8, heading), **f32)
+           if heading is not None else u[2])
+    ticks = (2.0 + 0.3 * u[0], 0.3 * u[1], wrap_angle(phi))
+    return est, state, ticks
+
+
+def fs2_tick_pair(est, state, ticks, seed: int):
+    """One tick from copies of ``state`` by ``est.predict`` (F2 on the
+    card, the twin elsewhere) and by the twin (``est._predict_plain``),
+    each drawing its control normals from a generator seeded ``seed`` on
+    the state's device: ((xv, Pv) of F2, (xv, Pv) of the twin)."""
+    out = []
+    for tick in (est.predict, est._predict_plain):
+        st = state._replace(xv=state.xv.clone(), Pv=state.Pv.clone())
+        gen = torch.Generator(device=state.xv.device).manual_seed(seed)
+        st = tick(st, gen, *ticks)
+        out.append((st.xv, st.Pv))
+    return out
+
+
+def _fs2_tick(dev, g, P) -> dict:
+    """F2 on the FastSLAM 2 cell's path (the heading known, the noise off)
+    against its twin, bit for bit."""
+    est, state, ticks = fs2_tick_case(dev, g, P)
+    got, want = fs2_tick_pair(est, state, ticks, seed=P)
+    _sync(dev)
+    check(not torch.equal(got[0], state.xv), "F2: the poses did not move")
+    return dict(shape=f"P={P} heading known, noise off", held="bit-equal",
+                max_abs_err=_bit_equal("F2", got, want))
+
+
 def refine_inputs(dev, rng, g, P, K):
     """K3's arguments at K observations, P particles: every fifth
     observation unmatched, its planes those of a landmark at the
@@ -539,7 +604,8 @@ def check_all(device, p_small: int, p_large: int, p_k1: int,
            "K4 config5": _update(dev, rng, g, "K4", p_large, config5),
            "K5 config5": _resample_update(dev, rng, g, p_large, config5),
            "S1": check_sim_control(dev, g, SIM_SUPERSTEPS),
-           "E1": check_ekf_predict(dev, g, **EKF10K)}
+           "E1": check_ekf_predict(dev, g, **EKF10K),
+           "F2": _fs2_tick(dev, g, p_k1)}
     if dev.type == "cuda":
         after = launch_counts()
         idle = [k for k in after if after[k] == before[k]]

@@ -298,7 +298,7 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
         assert torch.equal(g, w)
     assert tk.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                   "K5": 0, "K6": 0, "K6b": 0, "G1": 0,
-                                  "G2": 0, "S1": 0, "E1": 0}
+                                  "G2": 0, "S1": 0, "E1": 0, "F2": 0}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
