@@ -1,0 +1,480 @@
+"""The port's deferred FastSLAM 1 (``FastSlam1Deferred``) against the
+plain float64 reference ``tests/plain_fastslam1.py``, on the CPU, where
+the kernel wrappers run their twins (K6's multi-tick predict, K5's
+``resample_update_plain``, K4's ``fused_update_plain``, G2's).
+
+The mapped start: 304 landmarks on config #5's loop at a 60 m radius
+(``synthetic_map(304, 17, 60 m, seed 5)`` shifted to waypoint 0),
+capacity equal to the map (304 slots in every particle), P = 1024, a
+30 m range with the heading known, driven 40 supersteps from waypoint 0
+by ``Runner._chunk`` (~35 slots live, ~18 observations a superstep).
+From it, ``N_STEPS`` supersteps of ``Runner._chunk``, each held against
+the reference from the program's own state before it:
+
+- the predict's eight ticks (K6's twin, its own Philox stream), as a
+  distribution: the z-scores of the mean and variance of each pose
+  coordinate's motion against the reference's own draw, under
+  ``PREDICT_Z`` 6 (a widest z over 3 coordinates of one superstep);
+- the update on both arms: K5 where a resample is pending (its
+  offspring bounds gather every slot row, then the update) and K4 in
+  place where none is. The log weights that reach the gate, normalized,
+  within ``LOGW_TOL`` 1e-3 of the reference's relative to their size
+  (at least 1): float32 sums of ~15 log likelihoods a superstep, carried
+  over the drive (6.5e-5 measured); the live landmark means within
+  ``LM_TOL`` 1e-4 m (one 2x2 EKF step in float32 at coordinates of
+  ~60 m, ulp ~4e-6) and covariances within ``LMCOV_TOL`` 1e-5 of their
+  scale; ``n`` and the id table exactly; new features at the map's edge
+  (three landmarks added to a recorded batch take slots n on, in
+  observation order) and at the capacity's (one slot left: the first
+  takes it);
+- the gate's decision exactly (decisions within 1e-4 of the threshold
+  aside); a fired resample's offspring counts against the reference's
+  stratified counts from the same dithers (within ``COUNT_SLACK`` 2:
+  float32 t = P csum can move each of a particle's two bounds by one
+  slot) and its copies exactly: the pose rows now, every landmark row
+  the next update does not touch in the next K5.
+
+Only slots [0, n) are judged: rows at and past n are never read before
+a new feature writes them (``test_rows_past_n_are_never_read``). The
+reference in bfloat16 fails the tolerances
+(``test_bfloat16_fails_the_tolerances``).
+"""
+
+import contextlib
+import importlib.util
+import math
+from pathlib import Path
+
+import plain_fastslam1 as ref
+import pytest
+import torch
+
+from slam_tpu_torch.config import SlamConfig
+from slam_tpu_torch.maps import SlamMap, synthetic_map
+from slam_tpu_torch.models import FastSlam1Deferred, rbpf
+from slam_tpu_torch.models.particles import DeferredState
+from slam_tpu_torch.runtime.loop import Runner
+
+ROOT = Path(__file__).resolve().parents[1]
+P, N_MAP, DRIVE, N_STEPS, SEED = 1024, 304, 40, 8, 7
+LOGW_TOL, LM_TOL, LMCOV_TOL = 1e-3, 1e-4, 1e-5
+PREDICT_Z, COUNT_SLACK, GATE_MARGIN = 6.0, 2, 1e-4
+BF16 = torch.bfloat16
+# NEFFECTIVE 40 of 100 (config #5's is 75, at which every superstep here
+# fires): the gate fires on some supersteps and holds on others, so the
+# recorded updates take both arms.
+CFG = SlamConfig(V=3.0, WHEELBASE=4.0, MAX_RANGE=30.0, NEFFECTIVE=40,
+                 SWITCH_HEADING_KNOWN=1, max_landmarks=N_MAP,
+                 max_observations=96)
+
+
+def world() -> SlamMap:
+    m = synthetic_map(N_MAP, 17, radius=60.0, seed=5)
+    shift = m.waypoints[0].copy()
+    return SlamMap(landmarks=m.landmarks - shift,
+                   waypoints=m.waypoints - shift)
+
+
+def noise_R(est) -> tuple:
+    return ((float(est.R[0, 0]), 0.0), (0.0, float(est.R[1, 1])))
+
+
+def cloned(dstate: DeferredState) -> DeferredState:
+    ps = dstate.ps._replace(**{k: v.clone() for k, v in
+                               dstate.ps._asdict().items()})
+    return DeferredState(ps=ps, S=dstate.S.clone(), pending=dstate.pending)
+
+
+def ancestors(S):
+    return torch.searchsorted(S.long(), torch.arange(S.shape[0]),
+                              right=True).clamp(max=S.shape[0] - 1)
+
+
+@contextlib.contextmanager
+def gate_seen(got: dict):
+    """Keep in ``got["mid"]`` the log weights that reach the resample's
+    gate (``rbpf.resample_bounds``) inside the block."""
+    inner = rbpf.resample_bounds
+
+    def seen(logw, *a, **kw):
+        got["mid"] = logw.clone()
+        return inner(logw, *a, **kw)
+    rbpf.resample_bounds = seen
+    try:
+        yield got
+    finally:
+        rbpf.resample_bounds = inner
+
+
+class Spy:
+    """``FastSlam1Deferred`` that keeps, per superstep, the poses before
+    its predict and its controls, the state that reaches the update, the
+    observations, the update's dithers (redrawn from a copy of its
+    generator), the weights that reach the gate, and the state the
+    update returns."""
+
+    def __init__(self, est):
+        self.est, self.rows, self.row = est, [], None
+
+    def __getattr__(self, name):
+        return getattr(self.est, name)
+
+    def predict_multi(self, state, gen, controls):
+        self.row = dict(xv0=state.ps.xv.clone(), controls=controls.clone())
+        return self.est.predict_multi(state, gen, controls)
+
+    def update(self, state, gen, z, ids, zmask):
+        row, self.row = self.row, None
+        copy = torch.Generator().manual_seed(0)
+        copy.set_state(gen.get_state())
+        row.update(pre=cloned(state), obs=(z.clone(), ids.clone(),
+                                           zmask.clone()),
+                   dither=torch.rand(state.ps.n_particles, generator=copy))
+        with gate_seen(row):
+            out = self.est.update(state, gen, z, ids, zmask)
+        row["post"] = cloned(out)
+        self.rows.append(row)
+        return out
+
+
+def mapped_start(device="cpu"):
+    """(runner, simulator state, the filter's state, its generator)
+    after the drive."""
+    est = FastSlam1Deferred(CFG, N_MAP, device=device)
+    runner = Runner(CFG, world(), "FASTSLAM1", n_particles=P,
+                    estimator=est, device=device)
+    sim_state, st, gen, _ = runner._init(SEED)
+    sim_state, st, _ = runner._chunk(runner._superstep_for(st), sim_state,
+                                     st, gen, DRIVE)
+    return runner, sim_state, st, gen
+
+
+@pytest.fixture(scope="module")
+def start():
+    return mapped_start()
+
+
+@pytest.fixture(scope="module")
+def steps(start):
+    runner, sim_state, st, gen = start
+    spy = Spy(runner.est)
+    runner.est = spy
+    try:
+        runner._chunk(runner._superstep_for(st), sim_state, cloned(st),
+                      gen, N_STEPS)
+    finally:
+        runner.est = spy.est
+    return spy.est, spy.rows
+
+
+def reference_update(est, pre: DeferredState, obs, dtype=torch.float64):
+    """The reference's update of ``pre``: (logw, lm, lm_P, n, table),
+    the pending gather applied first."""
+    ps = pre.ps
+    lm, lm_P = ps.lm, ps.lm_P
+    if pre.pending:
+        anc = ancestors(pre.S)
+        lm, lm_P = lm[..., anc], lm_P[..., anc]
+    z, ids, mask = obs
+    return ref.observe_update(ps.logw, ps.xv, lm, lm_P, ps.n, ps.da_table,
+                              z, ids, mask, noise_R(est), dtype=dtype)
+
+
+def normalized(logw):
+    logw = logw.double()
+    return logw - torch.logsumexp(logw, 0)
+
+
+def gaps(got_logw, got_lm, got_lmP, want, n: int) -> dict:
+    """Each number a tolerance holds, of an update against the
+    reference's ``want`` = (logw, lm, lm_P, ...), over slots [0, n)."""
+    logw_r, lm_r, lmP_r = want[:3]
+    want_n = normalized(logw_r)
+    lm_r, lmP_r = lm_r[:, :n].double(), lmP_r[:, :n].double()
+    scale = torch.sqrt(lmP_r[0] * lmP_r[2]).clamp(min=1e-12)
+    return dict(
+        logw=float(((normalized(got_logw) - want_n).abs()
+                    / want_n.abs().clamp(min=1.0)).max()),
+        lm=float((got_lm[:, :n].double() - lm_r).abs().max()),
+        lmcov=float(((got_lmP[:, :n].double() - lmP_r).abs()
+                     / scale).max()))
+
+
+TOLS = dict(logw=LOGW_TOL, lm=LM_TOL, lmcov=LMCOV_TOL)
+
+
+def test_the_drive_maps_the_start(start):
+    _, _, st, _ = start
+    assert 20 <= int(st.ps.n) < N_MAP // 2
+    # Every particle holds the same live slots, each landmark once.
+    table = st.ps.da_table
+    assert int((table >= 0).sum()) == int(st.ps.n)
+    assert torch.equal(table[table >= 0].sort().values.long(),
+                       torch.arange(int(st.ps.n)))
+    assert bool((st.ps.lm_P[0, :int(st.ps.n)] > 0).all())
+    assert bool((st.ps.lm[:, int(st.ps.n):] == 0).all())
+
+
+@pytest.mark.parametrize("arm", ["K5", "K4"])
+def test_update_against_the_reference(steps, arm):
+    est, rows = steps
+    rows = [r for r in rows if r["pre"].pending == (arm == "K5")]
+    assert rows, f"no superstep took {arm}"
+    for row in rows:
+        pre, post = row["pre"], row["post"]
+        want = reference_update(est, pre, row["obs"])
+        n = int(post.ps.n)
+        assert n == want[3]
+        assert torch.equal(post.ps.da_table.long(), want[4])
+        got = gaps(row["mid"], post.ps.lm, post.ps.lm_P, want, n)
+        for key, tol in TOLS.items():
+            assert got[key] < tol, (key, got)
+
+
+def test_gate_and_resample_against_the_reference(steps):
+    est, rows = steps
+    fired = 0
+    n_min = est.n_min(P)
+    for row in rows:
+        pre, post = row["pre"], row["post"]
+        logw_r = reference_update(est, pre, row["obs"])[0]
+        logw_n, neff, fire = ref.resample_decision(logw_r, n_min)
+        if abs(neff - n_min) > GATE_MARGIN * n_min:
+            assert post.pending == fire
+        if not post.pending:
+            assert torch.equal(post.S, torch.arange(1, P + 1,
+                                                    dtype=torch.int32))
+            assert torch.equal(post.ps.xv, pre.ps.xv)
+            continue
+        fired += 1
+        counts = torch.diff(post.S.long(), prepend=torch.zeros(1).long())
+        want = ref.stratified_counts(torch.exp(logw_n), row["dither"]
+                                     .double())
+        assert int((counts - want).abs().max()) <= COUNT_SLACK
+        # The copies: the pose rows now, exactly.
+        anc = ancestors(post.S)
+        assert torch.equal(post.ps.xv, pre.ps.xv[:, anc])
+        assert torch.equal(post.ps.Pv, pre.ps.Pv[:, anc])
+        assert bool((post.ps.logw == -math.log(P)).all())
+    assert fired >= 2
+
+
+def test_k5_copies_the_untouched_rows_exactly(steps):
+    """Where K5 ran, every live row that the update neither matched nor
+    created is its ancestor's row, bit for bit."""
+    _, rows = steps
+    seen = 0
+    for row in rows:
+        pre, post = row["pre"], row["post"]
+        if not pre.pending:
+            continue
+        _, ids, mask = row["obs"]
+        slot, matched, _ = rbpf.associate_slots(pre.ps, ids, mask)
+        n0 = int(pre.ps.n)
+        keep = torch.ones(n0, dtype=torch.bool)
+        keep[slot[matched].long()] = False
+        anc = ancestors(pre.S)
+        for got, old in ((post.ps.lm, pre.ps.lm), (post.ps.lm_P,
+                                                   pre.ps.lm_P)):
+            assert torch.equal(got[:, :n0][:, keep],
+                               old[:, :n0][:, keep][..., anc])
+        seen += int(keep.sum())
+    assert seen > 0
+
+
+def stat_z(a, b) -> float:
+    """The larger z-score of the difference of the means and of the
+    variances of two samples [n]."""
+    n, m = a.numel(), b.numel()
+    va, vb = a.var(), b.var()
+    z_mean = (a.mean() - b.mean()).abs() / torch.sqrt(va / n + vb / m)
+    ma = ((a - a.mean()) ** 4).mean()
+    mb = ((b - b.mean()) ** 4).mean()
+    z_var = (va - vb).abs() / torch.sqrt((ma - va ** 2) / n
+                                         + (mb - vb ** 2) / m)
+    return float(torch.maximum(z_mean, z_var))
+
+
+def test_predict_as_a_distribution(steps):
+    est, rows = steps
+    Q = ((float(est.Q[0, 0]), 0.0), (0.0, float(est.Q[1, 1])))
+    kw = dict(Q=Q, wheelbase=CFG.WHEELBASE, dt=CFG.DT_CONTROLS)
+    gen = torch.Generator().manual_seed(11)
+    for row in rows:
+        ctl = row["controls"]
+        nominal = ref.propagate(row["xv0"], ctl, **kw)
+        got = row["pre"].ps.xv.double() - nominal
+        want = ref.propagate(row["xv0"], ctl, gen=gen, **kw) - nominal
+        got[2], want[2] = ref.wrap(got[2]), ref.wrap(want[2])
+        assert float(got[:2].abs().max()) > 1e-3       # the noise is on
+        assert max(stat_z(got[i], want[i]) for i in range(3)) < PREDICT_Z
+
+
+def with_pending(dstate: DeferredState, pending: bool) -> DeferredState:
+    """``dstate`` on the K5 arm (pending bounds of a stratified resample
+    of its weights) or the K4 arm (none pending)."""
+    if not pending:
+        return dstate._replace(S=torch.arange(1, P + 1, dtype=torch.int32),
+                               pending=False)
+    if dstate.pending:
+        return dstate
+    u = torch.rand(P, generator=torch.Generator().manual_seed(3),
+                   dtype=torch.float64)
+    w = torch.softmax(dstate.ps.logw.double(), 0)
+    S = torch.cumsum(ref.stratified_counts(w, u), 0).to(torch.int32)
+    return dstate._replace(S=S, pending=True)
+
+
+# Three landmarks first seen at the last recorded superstep: range (m)
+# and bearing (rad).
+NEW_Z = ((21.5, 0.31), (26.0, -0.52), (12.25, 0.87))
+
+
+def new_batch(rows):
+    """(the last recorded superstep's state, its observations with three
+    landmarks the map does not hold yet put in unused slots between the
+    others)."""
+    row = rows[-1]
+    pre = row["pre"]
+    z, ids, mask = (t.clone() for t in row["obs"])
+    free = torch.nonzero(~mask).flatten()[[1, 3, 4]]
+    unseen = torch.nonzero(pre.ps.da_table < 0).flatten()
+    unseen = unseen[~torch.isin(unseen, ids[mask].long())][:3]
+    z[free] = torch.tensor(NEW_Z)
+    ids[free] = unseen.to(ids.dtype)
+    mask[free] = True
+    return pre, (z, ids, mask)
+
+
+def updated(est, pre, obs):
+    """(the logw that reaches the gate, the state the update returns) of
+    one update of a copy of ``pre``."""
+    with gate_seen({}) as got:
+        post = est.update(cloned(pre), torch.Generator().manual_seed(5),
+                          *obs)
+    return got["mid"], post
+
+
+@pytest.mark.parametrize("arm", ["K5", "K4"])
+def test_new_features_at_the_map_edge(steps, arm):
+    """The new landmarks (the three added and any the batch had) take
+    slots n, n + 1, ... in observation order, beside the matched ones'
+    updates."""
+    est, rows = steps
+    pre, obs = new_batch(rows)
+    pre = with_pending(cloned(pre), arm == "K5")
+    n0 = int(pre.ps.n)
+    _, ids, mask = obs
+    new_ids = ids[mask & (pre.ps.da_table[ids.long()] < 0)].long()
+    n1 = n0 + new_ids.numel()
+    assert new_ids.numel() >= 3
+    want = reference_update(est, pre, obs)
+    mid, post = updated(est, pre, obs)
+    assert int(post.ps.n) == want[3] == n1
+    assert torch.equal(post.ps.da_table.long(), want[4])
+    assert post.ps.da_table[new_ids].tolist() == list(range(n0, n1))
+    got = gaps(mid, post.ps.lm, post.ps.lm_P, want, n1)
+    for key, tol in TOLS.items():
+        assert got[key] < tol, (key, got)
+
+
+@pytest.mark.parametrize("arm", ["K5", "K4"])
+def test_new_features_at_the_capacity_edge(steps, arm):
+    """With one slot left, the first new landmark takes it and the rest
+    are dropped: the table, n and the row as the reference's."""
+    est, rows = steps
+    pre, obs = new_batch(rows)
+    pre = with_pending(cloned(pre), arm == "K5")
+    pre = pre._replace(ps=pre.ps._replace(
+        n=torch.tensor(N_MAP - 1, dtype=torch.int32)))
+    want = reference_update(est, pre, obs)
+    mid, post = updated(est, pre, obs)
+    assert int(post.ps.n) == want[3] == N_MAP
+    assert torch.equal(post.ps.da_table.long(), want[4])
+    assert int((want[4] >= 0).sum()) == int((pre.ps.da_table >= 0)
+                                            .sum()) + 1
+    got = gaps(mid, post.ps.lm, post.ps.lm_P, want, N_MAP)
+    for key, tol in TOLS.items():
+        assert got[key] < tol, (key, got)
+
+
+def test_bfloat16_fails_the_tolerances(steps):
+    """The reference in bfloat16 in the port's place, on the same
+    inputs, reads over the tolerances."""
+    est, rows = steps
+    worst = dict.fromkeys(TOLS, 0.0)
+    for row in rows:
+        pre = row["pre"]
+        want = reference_update(est, pre, row["obs"])
+        b = reference_update(est, pre, row["obs"], BF16)
+        got = gaps(b[0], b[1], b[2], want, want[3])
+        worst = {k: max(worst[k], got[k]) for k in worst}
+    assert all(worst[k] > TOLS[k] for k in TOLS), worst
+
+
+def test_the_two_copies_of_the_reference_are_one():
+    bench = ROOT / "benchmark" / "reference" / "fastslam.py"
+    assert bench.read_bytes() == (ROOT / "tests"
+                                  / "plain_fastslam1.py").read_bytes()
+    spec = importlib.util.spec_from_file_location("bench_fastslam", bench)
+    copy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy)
+    g = torch.Generator().manual_seed(5)
+    n = 16
+    xv = torch.randn((3, n), generator=g, dtype=torch.float64)
+    lm = torch.zeros((2, 8, n), dtype=torch.float64)
+    lm[:, :2] = 5 + torch.randn((2, 2, n), generator=g, dtype=torch.float64)
+    lm_P = torch.zeros((3, 8, n), dtype=torch.float64)
+    lm_P[0, :2] = lm_P[2, :2] = 0.05
+    table = torch.tensor([0, -1, 1, -1])
+    z = torch.tensor([[7.0, 0.7], [3.0, -0.4], [7.1, 0.8]])
+    ids, mask = torch.tensor([0, 1, 2]), torch.tensor([True, True, True])
+    args = (torch.zeros(n, dtype=torch.float64), xv, lm, lm_P, 2, table, z,
+            ids, mask, ((0.01, 0.0), (0.0, 3e-4)))
+    a, b = ref.observe_update(*args), copy.observe_update(*args)
+    assert a[3] == b[3] == 3
+    for x, y in zip(a[:3] + a[4:], b[:3] + b[4:]):
+        assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The premise of the benchmark's check: rows at and past n are never read
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("arm", ["K5", "K4"])
+def test_rows_past_n_are_never_read(steps, arm, device):
+    """One update from a state whose slot rows at and past n hold NaN
+    gives the weights, bounds, poses and live rows that it gives from
+    zeros there, bit for bit."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
+    _, rows = steps
+    pre, obs = new_batch(rows)
+    est = FastSlam1Deferred(CFG, N_MAP, device=device)
+    pre = with_pending(cloned(pre), arm == "K5")
+    pre = DeferredState(
+        ps=pre.ps._replace(**{k: v.to(device) for k, v in
+                              pre.ps._asdict().items()}),
+        S=pre.S.to(device), pending=pre.pending)
+    n0 = int(pre.ps.n)
+    obs = tuple(t.to(device) for t in obs)
+    outs = []
+    for fill in (0.0, math.nan):
+        st = cloned(pre)
+        st.ps.lm[:, n0:] = fill
+        st.ps.lm_P[:, n0:] = fill
+        gen = torch.Generator(device=device).manual_seed(5)
+        outs.append(est.update(st, gen, *obs))
+    a, b = outs
+    n = int(a.ps.n)
+    assert n > n0 and int(b.ps.n) == n
+    assert a.pending == b.pending
+    for k in ("logw", "xv", "Pv", "da_table"):
+        assert torch.equal(getattr(a.ps, k), getattr(b.ps, k)), k
+    assert torch.equal(a.S, b.S)
+    assert torch.equal(a.ps.lm[:, :n], b.ps.lm[:, :n])
+    assert torch.equal(a.ps.lm_P[:, :n], b.ps.lm_P[:, :n])
+    assert not bool(torch.isnan(a.ps.lm).any())
