@@ -55,8 +55,8 @@ Phases, in order; any failure raises and exits non-zero:
    1e-5; Pv rtol 1e-3, atol 1e-6), as its chain over K observations
    compounds rounding; headings (and K1's bearings) are compared
    wrapped, as one ulp at +-pi flips a wrapped value by 2 pi. K5 must
-   also be bit-equal to G2's gather followed by K4 (the same operation
-   order), and its two load branches (staged through shared memory, and
+   also be bit-equal to G2's gather followed by K4 with its empty rows
+   zeroed (the same operation order), and its two load branches (staged through shared memory, and
    direct) bit-equal to each other; for the landmark observed twice,
    where the twin computes both updates from the old values, only these
    two hold. Times each kernel and its twin with CUDA events (plain,
@@ -307,6 +307,9 @@ TOL_PATHS = dict(rtol=1e-4, atol=1e-4)
 # its ancestor run, widened to 16-byte edges, fits it.
 K5_STAGE_WIDTH = 768
 K5_EDGE_P = 2 ** 16
+# The live slots of config5-full10k.mapped's start (800 supersteps from
+# waypoint 0), for K5 at the full-10k shapes.
+FULL10K_LIVE = 1469
 
 # The bound of a kernel: the larger of its bytes over the card's memory
 # rate and its operations over the float32 rate outside the tensor
@@ -475,8 +478,9 @@ def check_kernels(dev) -> dict:
     results["K4 full-10k"] = check_k4(dev, rng, g, P10k, L10k, C5_MAX_OBS,
                                       **full)
     torch.cuda.empty_cache()
-    results["K5 full-10k"] = check_k5_fired(dev, rng, g, P10k, L10k,
-                                            C5_MAX_OBS, full)
+    results["K5 full-10k"] = check_k5_fired(
+        dev, rng, g, P10k, L10k, C5_MAX_OBS,
+        dict(full, live=FULL10K_LIVE), all_rows=True)
     # K6's main path draws (FastSLAM 1 forces the noise on); K6b's does
     # not (SWITCH_PREDICT_NOISE defaults to 0).
     results["K6"] = check_predict(dev, g, "K6", C5_P, fs2=False,
@@ -852,31 +856,24 @@ def k5_layout(S) -> dict:
 
 
 def check_k5_case(name, state, batch, S, logw, twin=True) -> float:
-    """K5 on one input: bit-equal to G2's gather followed by K4, its
-    staged and direct branches bit-equal, and (``twin``) within TOL of
-    its twin. Returns the largest error against the twin."""
+    """K5 on one input: bit-equal to G2's gather followed by K4 with the
+    empty rows zeroed, its staged and direct branches bit-equal, and
+    (``twin``) within TOL of its twin. Returns the largest error against
+    the twin."""
     import torch
 
-    from slam_tpu_torch.ops.kernels import gather as kg
     from slam_tpu_torch.ops.kernels import kernels as kk
-
-    _, L, P = state.lm.shape
+    from slam_tpu_torch.ops.kernels.selfcheck import k5_composed
 
     def args(lw):
-        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
-
-    def composed(lw):
-        lm_g, lmP_g = kg.bounds_gather_multi(
-            [state.lm.reshape(2 * L, P), state.lm_P.reshape(3 * L, P)], S)
-        lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
-        kk.fused_update(state.xv, lw, lm_g, lmP_g, *batch, R)
-        return lm_g, lmP_g
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R, state.n)
 
     lw = [logw.clone() for _ in range(3)]
     got = (lw[0], *kk.resample_update(*args(lw[0])))
     for other, what in ((lambda a: kk.resample_update_launch(
             *args(a), staged=False), "its direct branch"),
-                        (composed, "G2 + K4")):
+                        (lambda a: k5_composed(state, batch, S, a),
+                         "G2 + K4")):
         ref = (lw[1], *other(lw[1]))
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
@@ -893,11 +890,21 @@ def check_k5_case(name, state, batch, S, logw, twin=True) -> float:
     return err
 
 
-def check_k5_fired(dev, rng, g, P, L, K, inputs) -> dict:
+def k5_bytes(P, L, K, live, distinct) -> int:
+    """K5's least bytes: the poses, the weights (read and written) and S;
+    every one of the 5 L rows written (live or zero); the ``live`` rows
+    it reads, once from each distinct ancestor (the new features' rows
+    are not read); the observations."""
+    return 4 * P * (3 + 1 + 1 + 5 * L + 1) + 4 * 5 * live * distinct + 18 * K
+
+
+def check_k5_fired(dev, rng, g, P, L, K, inputs, all_rows=False) -> dict:
     """K5 on the offspring bounds of a fired resample at K observations,
-    L slots, P particles (``inputs``: update_inputs' counts): bit-equal
-    to G2 + K4 and across its branches, within TOL of its twin, and
-    timed, with its bytes and operations."""
+    L slots, P particles, ``inputs["live"]`` of them live (``inputs``:
+    update_inputs' counts): bit-equal to G2 + K4 and across its
+    branches, within TOL of its twin, and timed, with its bytes and
+    operations. ``all_rows``: also timed with the live count at L, so
+    that every row is copied (the grid alone, against the live rows)."""
     import torch
 
     from slam_tpu_torch.ops.kernels import kernels as kk
@@ -912,8 +919,8 @@ def check_k5_fired(dev, rng, g, P, L, K, inputs) -> dict:
     err = check_k5_case(f"K={K} L={L} P={P}", state, batch, S, logw)
     layout = k5_layout(S)
 
-    def args(lw):
-        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
+    def args(lw, n=state.n):
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R, n)
     lw_k, lw_p, lw_d = logw.clone(), logw.clone(), logw.clone()
     times = measure(lambda: kk.resample_update(*args(lw_k)),
                     lambda: kk.resample_update_plain(*args(lw_p)))
@@ -921,21 +928,36 @@ def check_k5_fired(dev, rng, g, P, L, K, inputs) -> dict:
     def direct():
         return kk.resample_update_launch(*args(lw_d), staged=False)
     times.update(direct_ms=cuda_ms(direct), direct_device_ms=device_ms(direct))
-    # Reads the pose, the weight, S and every row of the distinct
-    # ancestors but those of the new slots; writes the weight and all
-    # 5 L rows.
-    nbytes = (4 * P * (3 + 1 + 1 + 5 * L + 1)
-              + 4 * 5 * (L - inputs["n_new"]) * layout["distinct"] + 18 * K)
-    print(f"kernel K5 (K={K} L={L} P={P}): distinct ancestors "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = kk.resample_update_chunks(P, L, sms)
+    nbytes = k5_bytes(P, L, K, inputs["live"], layout["distinct"])
+    print(f"kernel K5 (K={K} L={L} P={P} n={inputs['live']}): "
+          f"{chunks} chunks of {-(-P // K5_TILE)} tiles; distinct ancestors "
           f"{layout['distinct']}, sectors holding one "
           f"{layout['live_sectors']:.4f}, staged tiles "
           f"{layout['staged_tiles']:.4f}; direct branch "
           f"{times['direct_ms']:.4f} ms", flush=True)
+    out = dict(max_abs_err=err, shape=f"K={K} L={L} P={P} n={inputs['live']}",
+               bytes=nbytes, chunks=chunks,
+               ops=P * (inputs["n_match"] * OPS_MATCH
+                        + inputs["n_new"] * OPS_INIT), **layout, **times)
+    if all_rows:
+        full = torch.tensor(L, dtype=torch.int32, device=dev)
+        lw_a = logw.clone()
+
+        def every_row():
+            return kk.resample_update(*args(lw_a, full))
+        ms_a, dev_a = cuda_ms(every_row), device_ms(every_row)
+        bytes_a = k5_bytes(P, L, K, L - inputs["n_new"], layout["distinct"])
+        b_ms, _ = bound(bytes_a, out["ops"])
+        out["all_rows"] = dict(ms=ms_a, device_ms=dev_a, bytes=bytes_a,
+                               bound_ms=b_ms, share=b_ms / ms_a)
+        print(f"kernel K5 (K={K} L={L} P={P} n={L}, every row copied): "
+              f"{ms_a:.4f} ms (device {dev_a}), bound {b_ms:.4f} ms "
+              f"({bytes_a:.4g} B), share {b_ms / ms_a:.3f}", flush=True)
     del state, batch
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, shape=f"K={K} L={L} P={P}", bytes=nbytes,
-                ops=P * (inputs["n_match"] * OPS_MATCH
-                         + inputs["n_new"] * OPS_INIT), **layout, **times)
+    return out
 
 
 def check_k5(dev, rng, g) -> dict:
@@ -3076,7 +3098,11 @@ def main() -> int:
         if name == "K5":
             row.update({f: st[f] for f in ("direct_ms", "direct_device_ms",
                                            "distinct", "live_sectors",
-                                           "staged_tiles")})
+                                           "staged_tiles", "chunks")})
+            full = kernel_stats["K5 full-10k"]
+            row.update(full_10k={f: full[f] for f in (
+                "shape", "ms", "device_ms", "bound_ms", "share", "bytes",
+                "chunks", "distinct", "all_rows")})
         if name == "S1":
             row.update(long_device_ms=st["long_device_ms"])
         if name == "E1":

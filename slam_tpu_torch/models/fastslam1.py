@@ -54,10 +54,12 @@ def fs1_observe(state: ParticleState, z, ids, slot, matched, is_new, R,
                 S=None) -> ParticleState:
     """Weight, per-landmark EKF update and new features on logw, lm and
     lm_P (``landmark_update``; with ``S``, pending offspring bounds, into
-    fresh planes), then the id table (in place) and the live count."""
+    fresh planes whose rows past the new live count are zero), then the
+    id table (in place) and the live count."""
     slot_new, ok = rbpf.new_slots(state, is_new)
     lm, lm_P = landmark_update(state.xv, state.logw, state.lm, state.lm_P,
-                               z, slot, matched, slot_new, ok, R, S=S)
+                               z, slot, matched, slot_new, ok, R, S=S,
+                               n=state.n)
     rbpf.set_table(state.da_table, ids, slot_new, ok)
     return state._replace(lm=lm, lm_P=lm_P,
                           n=state.n + ok.sum(dtype=torch.int32))

@@ -285,72 +285,129 @@ observe.launches = 0
 # K5: fused resample + update into fresh landmark planes
 # ---------------------------------------------------------------------------
 
+# K5's tile of output columns (kTile in csrc/resample_update.cu).
+K5_TILE = 512
+
+
+def resample_update_chunks(P: int, L: int, sms: int) -> int:
+    """K5's chunks of the slot axis per column tile, at P particles and L
+    slots on a card of ``sms`` SMs: one where the ceil(P / K5_TILE)
+    tiles alone give every SM 4 blocks (P = 2^20: 2,048 tiles), else
+    enough for 8 blocks an SM (two waves of the 4 that fit; at P =
+    32,768 and L = 10,000, 17 chunks took 2.65 ms a call against 2.79
+    at 33 and 2.80-2.96 at 9 on an H100), at most one per 32 slots."""
+    tiles = -(-P // K5_TILE)
+    if tiles >= 4 * sms:
+        return 1
+    return max(1, min(-(-8 * sms // tiles), -(-L // 32)))
+
+
+def live_end(n, slot, matched, slot_new, ok_new, L: int):
+    """K5's n_end as a 0-d tensor, with no host read: the live count n
+    plus the new features, or one past the last slot an observation
+    writes where that lies further, at most L. Rows [n_end, L) are
+    K5's empty rows."""
+    mk = matched & (slot >= 0) & (slot < L)
+    nk = ok_new & (slot_new >= 0) & (slot_new < L)
+    past = torch.cat([torch.where(mk, slot + 1, 0),
+                      torch.where(nk, slot_new + 1, 0),
+                      torch.zeros(1, dtype=slot.dtype, device=slot.device)])
+    end = torch.clamp(n, 0, L) + nk.sum(dtype=torch.int32)
+    return torch.clamp(torch.maximum(end, past.max()), max=L)
+
+
+def zero_empty_rows(lm, lm_P, n, slot, matched, slot_new, ok_new) -> None:
+    """K5's empty rows of lm [2, L, P] and lm_P [3, L, P], [n_end, L)
+    (``live_end``), set to +0.0 in place."""
+    L = lm.shape[1]
+    empty = (torch.arange(L, device=lm.device)
+             >= live_end(n, slot, matched, slot_new, ok_new, L))[:, None]
+    lm.masked_fill_(empty, 0.0)
+    lm_P.masked_fill_(empty, 0.0)
+
+
 def resample_update_plain(xv, logw, lm, lm_P, S, z, slot, matched,
-                          slot_new, ok_new, R):
+                          slot_new, ok_new, R, n):
     """Plain twin of K5: gather the landmark planes by offspring bounds
-    S (G2's twin), then K4's twin on the gathered planes. logw [P] is
-    updated in place; returns the new (lm [2, L, P], lm_P [3, L, P])."""
+    S (G2's twin), then K4's twin on the gathered planes, then their
+    empty rows set to +0.0 (``zero_empty_rows``). logw [P] is updated in
+    place; returns the new (lm [2, L, P], lm_P [3, L, P])."""
     _, L, P = lm.shape
     lm_g, lmP_g = bounds_gather_multi_plain(
         [lm.reshape(2 * L, P), lm_P.reshape(3 * L, P)], S)
     lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
     fused_update_plain(xv, logw, lm_g, lmP_g, z, slot, matched, slot_new,
                        ok_new, R)
+    zero_empty_rows(lm_g, lmP_g, n, slot, matched, slot_new, ok_new)
     return lm_g, lmP_g
 
 
 def resample_update(xv, logw, lm, lm_P, S, z, slot, matched, slot_new,
-                    ok_new, R):
+                    ok_new, R, n):
     """K5 (replaces kernels.py:fs1_resample_update_tpu): K4 applied to
     the landmark planes gathered by the pending offspring bounds S [P]
-    (int32, non-decreasing, S[-1] == P). xv and logw are the already
-    permuted rows; logw is updated in place. Returns fresh (lm, lm_P):
-    the kernel cannot run in place. The twin on the CPU, the CUDA kernel
-    csrc/resample_update.cu on the card."""
+    (int32, non-decreasing, S[-1] == P), with the empty rows, at and
+    past the live count n (a 0-d int32 tensor) plus the new features
+    (``live_end``), stored as +0.0 and never read. xv and logw are the
+    already permuted rows; logw is updated in place.
+    Returns fresh (lm, lm_P): the kernel cannot run in place. The twin
+    on the CPU, the CUDA kernel csrc/resample_update.cu on the card."""
     if not xv.is_cuda:
         return resample_update_plain(xv, logw, lm, lm_P, S, z, slot,
-                                     matched, slot_new, ok_new, R)
+                                     matched, slot_new, ok_new, R, n)
     _, L, P = lm.shape
     K = z.shape[0]
     _check_cuda(dict(xv=xv, logw=logw, lm=lm, lm_P=lm_P, S=S, z=z,
                      slot=slot, matched=matched, slot_new=slot_new,
-                     ok_new=ok_new),
+                     ok_new=ok_new, n=n),
                 dict(S=torch.int32, slot=torch.int32,
                      slot_new=torch.int32, matched=torch.bool,
-                     ok_new=torch.bool))
+                     ok_new=torch.bool, n=torch.int32))
     _require(xv.shape == (3, P) and logw.shape == (P,) and S.shape == (P,)
              and lm.shape == (2, L, P) and lm_P.shape == (3, L, P)
-             and z.shape == (K, 2)
+             and z.shape == (K, 2) and n.shape == ()
              and all(t.shape == (K,)
                      for t in (slot, matched, slot_new, ok_new)),
              "resample_update: shapes do not match xv [3, P], logw [P], "
-             "S [P], lm [2, L, P], lm_P [3, L, P], z [K, 2], slots [K]")
+             "S [P], lm [2, L, P], lm_P [3, L, P], z [K, 2], slots [K], "
+             "n []")
     lm_o, lmP_o = resample_update_launch(xv, logw, lm, lm_P, S, z, slot,
-                                         matched, slot_new, ok_new, R)
+                                         matched, slot_new, ok_new, R, n)
     resample_update.launches += 1
     return lm_o, lmP_o
 
 
 def resample_update_launch(xv, logw, lm, lm_P, S, z, slot, matched,
-                           slot_new, ok_new, R, staged: bool = True):
+                           slot_new, ok_new, R, n, staged: bool = True):
     """One launch of csrc/resample_update.cu on tensors that
-    ``resample_update`` has checked; fresh (lm, lm_P). ``staged``: bring
-    the ancestors' rows through shared memory wherever a tile's ancestor
-    run fits (the path's setting); False reads every ancestor column
-    from device memory, to measure that branch on its own."""
+    ``resample_update`` has checked; fresh (lm, lm_P). Adds (L - n_end,
+    L) to ``resample_update.rows``. ``staged``: bring the ancestors'
+    rows through shared memory wherever a tile's ancestor run fits (the
+    path's setting); False reads every ancestor column from device
+    memory, to measure that branch on its own."""
     _, L, P = lm.shape
+    rows = resample_update.rows
+    if rows is None or rows.device != xv.device:
+        rows = resample_update.rows = torch.zeros(2, dtype=torch.int64,
+                                                  device=xv.device)
+    sms = torch.cuda.get_device_properties(xv.device).multi_processor_count
     lm_o, lmP_o = torch.empty_like(lm), torch.empty_like(lm_P)
     err = build.load_library().slam_fs1_resample_update(
         xv.data_ptr(), logw.data_ptr(), lm.data_ptr(), lm_P.data_ptr(),
         lm_o.data_ptr(), lmP_o.data_ptr(), S.data_ptr(), z.data_ptr(),
         slot.data_ptr(), matched.data_ptr(), slot_new.data_ptr(),
-        ok_new.data_ptr(), *pk.sym2_host(R), z.shape[0], L, P, int(staged),
+        ok_new.data_ptr(), n.data_ptr(), rows.data_ptr(),
+        *pk.sym2_host(R), z.shape[0], L, P,
+        resample_update_chunks(P, L, sms), int(staged),
         torch.cuda.current_stream(xv.device).cuda_stream)
     build.check(err, "slam_fs1_resample_update")
     return lm_o, lmP_o
 
 
 resample_update.launches = 0
+# (sum of L - n_end, sum of L) over the process's K5 launches, an int64
+# tensor on the card once K5 has launched; the twin leaves it alone.
+resample_update.rows = None
 
 
 # ---------------------------------------------------------------------------
@@ -364,15 +421,17 @@ FUSED_ALIGN = 128
 
 
 def landmark_update(xv, logw, lm, lm_P, z, slot, matched, slot_new,
-                    ok_new, R, *, S=None, group=None):
+                    ok_new, R, *, S=None, n=None, group=None):
     """The FastSLAM 1 update of logw and the landmark planes by the one
     kernel that fits: K5 when ``S``, a pending resample's offspring
-    bounds, is given (into fresh planes); else K4 when P is a multiple of
-    FUSED_ALIGN, K2 at any other P, in place, ``group`` their
-    cross-shard arm. Returns the updated (lm, lm_P)."""
+    bounds, is given with ``n``, the live count (into fresh planes);
+    else K4 when P is a multiple of FUSED_ALIGN, K2 at any other P, in
+    place, ``group`` their cross-shard arm. Returns the updated (lm,
+    lm_P)."""
     if S is not None:
+        _require(n is not None, "landmark_update: K5 needs the live count n")
         return resample_update(xv, logw, lm, lm_P, S, z, slot, matched,
-                               slot_new, ok_new, R)
+                               slot_new, ok_new, R, n)
     update = fused_update if logw.shape[-1] % FUSED_ALIGN == 0 else observe
     update(xv, logw, lm, lm_P, z, slot, matched, slot_new, ok_new, R,
            group=group)

@@ -10,8 +10,8 @@ What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
 - G1, G2, K6, K6b, F2 and S1 bit-equal to their twins (the gathers
   copy; the predicts and the simulator's ticks keep the twins' operation
   order);
-- K5 bit-equal to G2's gather followed by K4 (the same operation order),
-  and within TOL of its twin;
+- K5 bit-equal to G2's gather followed by K4 with the empty rows zeroed
+  (the same operation order), and within TOL of its twin;
 - K3 at the JAX package's golden tolerances of the refinement (xv rtol
   1e-4, atol 1e-5; Pv rtol 1e-3, atol 1e-6): its chain over K
   observations compounds rounding;
@@ -65,7 +65,7 @@ TOL_REFINE_PV = dict(rtol=1e-3, atol=1e-6)
 R = [[0.01, 0.0], [0.0, 0.0003]]
 Q = [[0.09, 0.0], [0.0, 0.0025]]
 # K5's tile of output columns, as in csrc/resample_update.cu (kTile).
-K5_TILE = 512
+K5_TILE = kk.K5_TILE
 T_PREDICT = 8
 # S1's drive: supersteps of T_PREDICT ticks on the bench's webmap world.
 SIM_SUPERSTEPS = 64
@@ -144,7 +144,7 @@ def update_inputs(dev, rng, g, P, L, K, *, n_map, live, n_match, n_new,
     if twice:
         seen[1] = seen[0]
     ids_np = np.concatenate([seen, np.arange(live, live + n_new),
-                             rng.choice(live, K - n_match - n_new)]
+                             rng.choice(max(live, 1), K - n_match - n_new)]
                             ).astype(np.int32)
     d = truth[ids_np]
     z = t(np.column_stack([np.hypot(d[:, 0], d[:, 1]),
@@ -263,9 +263,22 @@ def _update(dev, rng, g, name, P, world) -> dict:
                 max_abs_err=_close(name, a_k[1:4], a_p[1:4], TOL))
 
 
+def k5_composed(state, batch, S, logw):
+    """K5's function from the other kernels, in its operation order: G2's
+    gather by S, K4 in place on logw and the gathered planes, then the
+    empty rows zeroed (``kernels.zero_empty_rows``). Returns (lm, lm_P)."""
+    _, L, P = state.lm.shape
+    lm_g, lmP_g = kg.bounds_gather_multi(
+        [state.lm.reshape(2 * L, P), state.lm_P.reshape(3 * L, P)], S)
+    lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
+    kk.fused_update(state.xv, logw, lm_g, lmP_g, *batch, R)
+    kk.zero_empty_rows(lm_g, lmP_g, state.n, *batch[1:])
+    return lm_g, lmP_g
+
+
 def _resample_update(dev, rng, g, P, world) -> dict:
-    """K5 on the bounds of a fired resample: bit-equal to G2 + K4, within
-    TOL of its twin."""
+    """K5 on the bounds of a fired resample: bit-equal to G2 + K4 with the
+    empty rows zeroed, within TOL of its twin."""
     w = dict(world)
     L, K = w.pop("L"), w.pop("K")
     state, batch = update_inputs(dev, rng, g, P, L, K, **w)
@@ -273,16 +286,13 @@ def _resample_update(dev, rng, g, P, world) -> dict:
     S = k5_bounds(dev, rng, g, P, "fired")
 
     def args(lw):
-        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R)
+        return (state.xv, lw, state.lm, state.lm_P, S, *batch, R, state.n)
     lw = [logw.clone() for _ in range(3)]
     got = (lw[0], *kk.resample_update(*args(lw[0])))
-    lm_g, lmP_g = kg.bounds_gather_multi(
-        [state.lm.reshape(2 * L, P), state.lm_P.reshape(3 * L, P)], S)
-    lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
-    kk.fused_update(state.xv, lw[1], lm_g, lmP_g, *batch, R)
+    composed = (lw[1], *k5_composed(state, batch, S, lw[1]))
     want = (lw[2], *kk.resample_update_plain(*args(lw[2])))
     _sync(dev)
-    check(all(torch.equal(a, b) for a, b in zip(got, (lw[1], lm_g, lmP_g))),
+    check(all(torch.equal(a, b) for a, b in zip(got, composed)),
           f"K5 (K={K} L={L} P={P}): not bit-equal to G2 + K4")
     return dict(shape=f"K={K} L={L} P={P}", held="bit-equal to G2 + K4; TOL",
                 max_abs_err=_close("K5", got, want, TOL))

@@ -79,21 +79,23 @@ def _bounds(logw, key):
 
 
 def _update_batch(P=1024, L=16, n_map=24, seed=11):
-    """A JAX state with 10 live slots and a batch with matched, new and
-    masked entries, and the bookkeeping the update derives from it."""
+    """A JAX state with 10 live slots (the rows at and past n zero, as
+    the filter keeps them) and a batch with matched, new and masked
+    entries, and the bookkeeping the update derives from it."""
     from slam_tpu.models import rbpf as jrbpf
 
     rng = np.random.default_rng(seed)
     table = -np.ones(n_map, np.int32)
     table[2:12] = np.arange(10)
+    lm = rng.normal(size=(2, L, P)).astype(np.float32) * 5
+    lm[:, 10:] = 0.0
     lm_P = np.zeros((3, L, P), np.float32)
-    lm_P[0], lm_P[2], lm_P[1] = 0.1, 0.1, 0.01
+    lm_P[0, :10], lm_P[2, :10], lm_P[1, :10] = 0.1, 0.1, 0.01
     state = jinit(P, L, n_map)._replace(
         logw=jnp.asarray((rng.normal(size=P) * 0.3 - np.log(P))
                          .astype(np.float32)),
         xv=jnp.asarray(rng.normal(size=(3, P)).astype(np.float32) * 0.1),
-        lm=jnp.asarray(rng.normal(size=(2, L, P)).astype(np.float32) * 5),
-        lm_P=jnp.asarray(lm_P), n=jnp.int32(10),
+        lm=jnp.asarray(lm), lm_P=jnp.asarray(lm_P), n=jnp.int32(10),
         da_table=jnp.asarray(table))
     K = 5
     z = jnp.asarray(np.column_stack([rng.uniform(3, 8, K),
@@ -118,7 +120,8 @@ def _k5_args(state, S, z, slot, matched, slot_new, ok, device="cpu"):
             _t(state.lm, device), _t(state.lm_P, device),
             _t(S, device).to(i32), _t(z, device),
             _t(slot, device).to(i32), _t(matched, device),
-            _t(slot_new, device).to(i32), _t(ok, device), R)
+            _t(slot_new, device).to(i32), _t(ok, device), R,
+            _t(state.n, device).to(i32))
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +517,7 @@ def test_k5_kernel_matches_twin_on_card(cuda, fired):
 
 
 # K5's tiles, as in csrc/resample_update.cu (kTile, kStageWidth).
-K5_TILE, K5_STAGE_WIDTH = 512, 768
+K5_TILE, K5_STAGE_WIDTH = tkernels.K5_TILE, 768
 K5_EDGE_CASES = ("one ancestor", "identity but one tile", "wide run", "L=40",
                  "no matched observation", "one landmark observed twice")
 
@@ -572,7 +575,8 @@ def _k5_edge_case(case, P=8192, seed=5):
     logw = rng.normal(size=P).astype(np.float32)
     return dict(xv=xv, logw=logw, lm=lm, lm_P=lm_P, S=S, z=z,
                 slot=slot.numpy(), matched=matched.numpy(),
-                slot_new=slot_new.numpy(), ok=ok.numpy(), anc=anc)
+                slot_new=slot_new.numpy(), ok=ok.numpy(), anc=anc,
+                n=np.int32(live))
 
 
 def _k5_tile_runs(anc):
@@ -585,7 +589,8 @@ def _k5_case_args(c, device):
     return (_t(c["xv"], device), _t(c["logw"], device), _t(c["lm"], device),
             _t(c["lm_P"], device), _t(c["S"], device), _t(c["z"], device),
             _t(c["slot"], device), _t(c["matched"], device),
-            _t(c["slot_new"], device), _t(c["ok"], device), R)
+            _t(c["slot_new"], device), _t(c["ok"], device), R,
+            _t(c["n"], device))
 
 
 @pytest.mark.parametrize("case", K5_EDGE_CASES)
@@ -624,20 +629,22 @@ def test_k5_edge_cases_are_what_they_say(case):
 @pytest.mark.parametrize("case", K5_EDGE_CASES)
 def test_k5_edge_cases_on_card(cuda, case):
     """K5 on each edge case: bit-equal to G2's gather followed by K4
-    (one operation order) and across its staged and direct branches,
-    and within TOL of its twin; for the landmark observed twice the twin
-    computes both updates from the old values, so only the first two
-    hold."""
+    with the empty rows zeroed (one operation order) and across its
+    staged and direct branches, and within TOL of its twin; for the
+    landmark observed twice the twin computes both updates from the old
+    values, so only the first two hold. The rows past n hold noise,
+    which K5 neither reads nor keeps."""
     c = _k5_edge_case(case)
     runs = [_k5_case_args(c, cuda) for _ in range(4)]
     L, P = c["lm"].shape[1], c["lm"].shape[2]
     got = tk.resample_update(*runs[0])
     direct = tkernels.resample_update_launch(*runs[1], staged=False)
-    xv, logw, lm, lm_P, S, *batch, _ = runs[2]
+    xv, logw, lm, lm_P, S, *batch, _, n = runs[2]
     lm_g, lmP_g = tk.bounds_gather_multi(
         [lm.reshape(2 * L, P), lm_P.reshape(3 * L, P)], S)
     lm_g, lmP_g = lm_g.reshape(2, L, P), lmP_g.reshape(3, L, P)
     tk.fused_update(xv, logw, lm_g, lmP_g, *batch, R)
+    tkernels.zero_empty_rows(lm_g, lmP_g, n, *batch[1:])
     torch.cuda.synchronize()
     for ref in ((runs[1][1], *direct), (logw, lm_g, lmP_g)):
         for g, w in zip((runs[0][1], *got), ref):

@@ -447,7 +447,8 @@ def test_the_two_copies_of_the_reference_are_one():
 def test_rows_past_n_are_never_read(steps, arm, device):
     """One update from a state whose slot rows at and past n hold NaN
     gives the weights, bounds, poses and live rows that it gives from
-    zeros there, bit for bit."""
+    zeros there, bit for bit; K5 stores its rows at and past the new n
+    as +0.0 on both fills."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
                     "mode")
@@ -478,3 +479,8 @@ def test_rows_past_n_are_never_read(steps, arm, device):
     assert torch.equal(a.ps.lm[:, :n], b.ps.lm[:, :n])
     assert torch.equal(a.ps.lm_P[:, :n], b.ps.lm_P[:, :n])
     assert not bool(torch.isnan(a.ps.lm).any())
+    if arm == "K5":
+        for out in (a, b):
+            for t in (out.ps.lm[:, n:], out.ps.lm_P[:, n:]):
+                assert bool((t == 0).all())
+                assert not bool(torch.signbit(t).any())
