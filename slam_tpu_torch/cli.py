@@ -7,13 +7,15 @@ name runs the EKF, as in the JAX package), ``-particles``, ``-ticks``,
 options ``-plot`` (stream the run to a slam-gui: the native publisher
 when its library loads, else the Python one), ``-profile <dir>`` (a
 profiler trace of the run, and ``<dir>/spans.json``: the run's spans,
-``slam_tpu_torch.spans``, on the trace's clock, whose self times per
-span name are printed on stderr) and ``-ckpt <path>`` (a checkpointed run
-that resumes from ``<path>`` when it exists). The map's ``<map>.ini``
-is loaded when it exists. The run takes place on the card (``cuda``);
-without one the command fails with the reason on stderr and a non-zero
-exit code. ``-device cpu`` is the only way to a CPU run, ``-device
-cuda:1`` picks another card. The device is printed with the banner.
+``slam_tpu_torch.spans``, on the trace's clock, and their rows a
+superstep; each span name's self time, and its median and p95
+milliseconds a superstep, are printed on stderr) and ``-ckpt <path>``
+(a checkpointed run that resumes from ``<path>`` when it exists). The
+map's ``<map>.ini`` is loaded when it exists. The run takes place on the
+card (``cuda``); without one the command fails with the reason on stderr
+and a non-zero exit code. ``-device cpu`` is the only way to a CPU run,
+``-device cuda:1`` picks another card. The device is printed with the
+banner.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ Usage: python -m slam_tpu_torch [options]
     -device <dev>    cuda | cuda:N | cpu (default: cuda; fails without a card)
     -plot            stream ZMQ telemetry to a running slam-gui
     -profile <dir>   write a torch.profiler trace of the run into <dir>,
-                     and its spans into <dir>/spans.json
+                     and its spans and superstep rows into
+                     <dir>/spans.json
     -ckpt <path>     checkpoint path prefix (a chunked run that resumes)
     -out <dir>       report output directory (default .)
     -KEY <value>     override any config key (e.g. -SWITCH_HEADING_KNOWN 0)
@@ -121,8 +124,9 @@ def main(argv: list[str] | None = None) -> int:
             result = runner.run(seed=seed, n_ticks=nt)
     if prof is not None:
         from slam_tpu_torch import spans
-        from slam_tpu_torch.runtime.profiling import span_table
+        from slam_tpu_torch.runtime.profiling import span_table, step_table
         print(span_table(spans.summary()), file=sys.stderr)
+        print(step_table(spans.steps()), file=sys.stderr)
     metrics = compute_metrics(result)
     print(metrics.summary(), file=sys.stderr)
     path = write_report(result, sim_name, out_dir)

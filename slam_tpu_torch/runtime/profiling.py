@@ -4,7 +4,9 @@ slam_tpu.runtime.profiling, whose ``trace`` and ``time_phases`` are
 here too).
 
 ``trace(log_dir)`` writes a profiler trace of a block and the spans
-(``slam_tpu_torch.spans``) recorded in it (the CLI's ``-profile``);
+(``slam_tpu_torch.spans``) recorded in it, with the supersteps' rows of
+the spans' clocks (the CLI's ``-profile``; ``step_table`` prints the
+rows);
 ``time_phases(runner)`` is the median host time of a predict tick, an
 observe update and a superstep.
 ``kernel_times(prof)`` sums a profile's kernels by name;
@@ -59,6 +61,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import (
@@ -138,14 +141,18 @@ def trace(log_dir: str):
 def write_spans(prof, path: str) -> None:
     """The span store as JSON in ``path``: its records (``fields``
     names their entries; stamps in Unix nanoseconds), ``summary()``, the
-    counts of spans dropped and cut, and ``trace_start_ns``, the zero of
+    counts of spans dropped and cut, ``trace_start_ns``, the zero of
     the finished profile ``prof``'s trace, whose events' ``time_range``
-    counts microseconds from it: a record and an event compare as
-    ``t0_ns`` against ``trace_start_ns + 1000 * time_range.start``."""
+    counts microseconds from it (a record and an event compare as
+    ``t0_ns`` against ``trace_start_ns + 1000 * time_range.start``), and
+    ``steps``, the ring's rows (``spans.steps()``: per superstep, each
+    name's total nanoseconds in it and whether it ran traced)."""
+    rows = spans.steps()
     out = dict(trace_start_ns=prof.profiler.kineto_results.trace_start_ns(),
                fields=["name", "id", "parent", "t0_ns", "t1_ns"],
                records=spans.records(), summary=spans.summary(),
-               dropped=spans.dropped(), cut=spans.cut())
+               dropped=spans.dropped(), cut=spans.cut(),
+               steps={k: v.tolist() for k, v in rows.items()})
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as fh:
         json.dump(out, fh)
@@ -158,6 +165,20 @@ def span_table(summary: dict) -> str:
         rows.append(f"{name:<18} {s['count']:>8} {s['total_s'] * 1e3:>12.3f}"
                     f" {s['self_s'] * 1e3:>12.3f}")
     return "\n".join(rows)
+
+
+def step_table(rows: dict) -> str:
+    """The ring's rows (``spans.steps()``) as a table: each span's median
+    and 95th-percentile milliseconds a superstep, by median; names that
+    no superstep holds are left out."""
+    traced = int(rows["traced"].sum())
+    out = [f"{'span':<18} {'median ms':>12} {'p95 ms':>12}   "
+           f"({len(rows['traced'])} supersteps, {traced} traced)"]
+    ms = {k: v / 1e6 for k, v in rows.items() if k != "traced" and v.any()}
+    for name, v in sorted(ms.items(), key=lambda kv: -np.median(kv[1])):
+        out.append(f"{name:<18} {np.median(v):>12.3f} "
+                   f"{np.percentile(v, 95):>12.3f}")
+    return "\n".join(out)
 
 
 def spans_per(within: str, n: int) -> dict:
