@@ -43,7 +43,11 @@ Phases, in order; any failure raises and exits non-zero:
    2^17 + 37 on both arms of the heading and of the noise, Pv zero and
    not, and across +-pi, timed on the heading-known, noise-off arm
    beside its twin (the eager tick, ~195 launches), with the same two
-   host times.
+   host times; R1, a fired resample's offspring bounds, at P=2^20 and
+   2^17 on every kind of selfcheck.bounds_inputs (prefix sums that dip
+   at the twin's row edges and R1's tile edges among them), bit-equal to
+   its twin, and timed beside it and beside torch.cummax on the same
+   unscanned bounds (the port's eager form before R1; library_ms).
    Gathers, K6, K6b, F2 and S1 must be bit-equal to their twins (the
    predicts and S1 keep the twins' operation order, and the sweep below
    holds the predicts' sincosf and the fast wrap to sinf, cosf and the
@@ -220,8 +224,8 @@ Phases, in order; any failure raises and exits non-zero:
 18. The bench entry (slam_tpu_torch.bench), through its functions with
    no device named, at bench.py's full sizes: the primary line
    fastslam1_webmap (FastSLAM 1, P = 100, 4000 ticks, seeds 3-5, then a
-   16000-tick run of seed 3: K2 and S1 once per superstep, G1, nothing
-   else)
+   16000-tick run of seed 3: K2 and S1 once per superstep, G1 and R1,
+   nothing else)
    and the ba_10k line (no kernel; bench.py's two checks); the primary
    JSON has bench.py's four keys, and each line lies within its limit
    (the ATE below twice the JAX package's mean on the same world, ticks
@@ -390,6 +394,9 @@ KERNELS = {
     "F2": ("slam_tpu_torch/csrc/predict.cu",
            "none: FastSLAM 2's predict tick with the heading known "
            "(models/fastslam2.py; XLA's in the JAX package)"),
+    "R1": ("slam_tpu_torch/csrc/offspring_bounds.cu",
+           "none: a fired resample's offspring bounds (ops/resampling.py; "
+           "XLA's in the JAX package)"),
 }
 
 
@@ -492,6 +499,8 @@ def check_kernels(dev) -> dict:
     results["S1"] = check_sim_control(dev, g)
     results["E1"] = check_ekf_predict(dev, g)
     results["F2"] = check_fs2_tick(dev, g)
+    results["R1"] = check_r1(dev, g, C5_P)
+    results["R1 fs2"] = check_r1(dev, g, P_LARGE)
     return results
 
 
@@ -618,6 +627,31 @@ def check_fs2_tick(dev, g) -> dict:
                 "off", bytes=4 * (11 + 9) * P_LARGE + 12,
                 ops=OPS_TICK_F2 * P_LARGE, wrapper_host_us=wrapper_us,
                 predict_host_us=predict_us, **times)
+
+
+def check_r1(dev, g, P) -> dict:
+    """R1 at P on every kind of ``selfcheck.bounds_inputs``, bit-equal to
+    its twin; then timed on a prefix sum of random weights beside the twin
+    and beside torch.cummax over the same unscanned bounds (the running
+    max the eager form took, one block of PyTorch's scan; the yardstick
+    only: the port no longer calls it)."""
+    import torch
+
+    from slam_tpu_torch.ops import resampling as rs
+    from slam_tpu_torch.ops.kernels import bounds as kb
+
+    selfcheck.check_offspring_bounds(dev, g, P)
+    csum, U = selfcheck.bounds_inputs(dev, g, P, "random")
+    t = csum * float(P)
+    k = torch.clamp(t.to(torch.int32), 0, P - 1)
+    raw = k + (U(k) < t - k.to(torch.float32)).to(torch.int32)
+    times = measure(lambda: kb.offspring_bounds(csum, P, U),
+                    lambda: rs.offspring_bounds_plain(csum, P, U),
+                    lambda: torch.cummax(raw, dim=0))
+    print(f"kernel R1 (P={P}): bit-equal to its twin on "
+          f"{len(selfcheck.BOUNDS_KINDS)} kinds of prefix sum", flush=True)
+    return dict(max_abs_err=0.0, shape=f"P={P}", bytes=12 * P, ops=0,
+                **times)
 
 
 def check_sim_control(dev, g) -> dict:
@@ -2845,8 +2879,9 @@ def check_bench_entry(dev) -> dict:
     keys; the line's ATE lies below its limit (twice the JAX package's
     mean on the same world, ticks and seeds) and ba_10k's error within
     5 % of the JAX package's (bench.py's two checks raise inside the
-    line); K2 launches once per superstep and G1 at least once, nothing
-    else. {"bench-fastslam1_webmap": slice}."""
+    line); K2 launches once per superstep and G1 at least once, R1 as
+    often as G1 (each fired resample's bounds), nothing else.
+    {"bench-fastslam1_webmap": slice}."""
     import torch
 
     from slam_tpu_torch import bench
@@ -2864,8 +2899,9 @@ def check_bench_entry(dev) -> dict:
           and primary["value"] > 0,
           f"bench: the primary JSON {primary}")
     check(counts["K2"] == counts["S1"] == supersteps and counts["G1"] > 0
+          and counts["R1"] == counts["G1"]
           and not any(n for k, n in counts.items()
-                      if k not in ("K2", "G1", "S1")),
+                      if k not in ("K2", "G1", "S1", "R1")),
           f"bench fastslam1_webmap: launches {counts} in {supersteps} "
           "supersteps")
     torch.cuda.empty_cache()
@@ -3067,7 +3103,7 @@ def main() -> int:
               "shape")
     table = []
     for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1", "G2",
-                 "S1", "E1", "F2"):
+                 "S1", "E1", "F2", "R1"):
         st = kernel_stats[name]
         # S1 runs in every slice with a simulator, the EKFs' too; E1 in
         # the block EKF's.
@@ -3111,6 +3147,8 @@ def main() -> int:
         if name == "F2":
             row.update({f: st[f] for f in ("wrapper_host_us",
                                            "predict_host_us")})
+        if name == "R1":
+            row.update(fs2={f: kernel_stats["R1 fs2"][f] for f in fields})
         if name in sass:
             row.update({f: st[f] for f in ("issue_bound_ms", "issue_share",
                                            "sass", "sm_clock_mhz")},

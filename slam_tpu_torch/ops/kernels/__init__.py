@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the port, with their plain PyTorch
 twins (counterpart: slam_tpu.ops.pallas). Every TPU kernel of the JAX
-package has one; the simulator (S1), the block EKF (E1) and FastSLAM 2's
-predict tick (F2) have their own:
+package has one; the simulator (S1), the block EKF (E1), FastSLAM 2's
+predict tick (F2) and the resample's offspring bounds (R1) have their
+own:
 
 =====  ===========================  ===================================
 id     wrapper                      replaces
@@ -19,9 +20,12 @@ S1     vehicle.control_multi        (no kernel: the simulator's ticks)
 E1     ekf.ekf_predict_tick         (no kernel: the block EKF's predict)
 F2     predict.fs2_predict_tick     (no kernel: FastSLAM 2's predict tick
                                     with the heading known)
+R1     bounds.offspring_bounds      (no kernel: a fired resample's
+                                    offspring bounds)
 =====  ===========================  ===================================
 """
 
+from slam_tpu_torch.ops.kernels.bounds import offspring_bounds
 from slam_tpu_torch.ops.kernels.ekf import ekf_predict_tick
 from slam_tpu_torch.ops.kernels.gather import (
     bounds_gather_multi,
@@ -54,6 +58,7 @@ WRAPPERS = {
     "S1": control_multi,
     "E1": ekf_predict_tick,
     "F2": fs2_predict_tick,
+    "R1": offspring_bounds,
 }
 
 
@@ -71,4 +76,5 @@ __all__ = ["WRAPPERS", "bounds_gather_multi", "control_multi",
            "ekf_predict_tick", "fs1_predict_multi", "fs2_predict_multi",
            "fs2_predict_tick", "fs2_refine",
            "fused_update", "jacobians", "launch_counts", "observe",
-           "reset_launch_counts", "resample_update", "sorted_gather_multi"]
+           "offspring_bounds", "reset_launch_counts", "resample_update",
+           "sorted_gather_multi"]

@@ -71,6 +71,8 @@ SIGNATURES = {
     "slam_sorted_gather": [GatherArrays, _P, _I, _I, _P],
     "slam_bounds_gather": [GatherArrays, _P, _I, _P],
     "slam_gather_max_arrays": [],
+    "slam_offspring_bounds": [_P] * 3 + [_I] * 2 + [_P] + [_P],
+    "slam_offspring_bounds_workspace": [_I],
 }
 
 

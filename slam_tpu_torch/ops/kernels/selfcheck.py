@@ -1,4 +1,4 @@
-"""The kernel gate: each of the twelve CUDA kernels against its plain
+"""The kernel gate: each of the thirteen CUDA kernels against its plain
 PyTorch twin, once, on seeded inputs at the shapes the bench lines give
 it (``slam_tpu_torch.bench`` runs ``run`` before it times anything).
 
@@ -18,6 +18,9 @@ What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
 - K1, K2 and K4 within TOL, rtol 1e-5 and atol 1e-5: they sum over k in
   another order than the twins, and the device's libm rounds sin, cos
   and log differently from torch's;
+- R1 bit-equal to its twin (``resampling.offspring_bounds_plain``), on
+  prefix sums that dip at the twin's row edges and R1's tile edges, and
+  with the dither given as a table and as a bare callable;
 - E1 against its twin run in float64: its error on each output at most
   twice the eager float32 code's (the twin on float32), on both arms of
   the heading; the eager code's products go to cuBLAS, which may fuse
@@ -26,8 +29,8 @@ What each kernel is held to (as ``chip_smoke.py`` phase 3 holds it):
   wrapped value by 2 pi.
 
 The input builders here (``update_inputs``, ``predict_inputs``,
-``gathered_planes``, ``k5_bounds``) are also the ones ``chip_smoke.py``
-uses for its timed checks at larger shapes.
+``gathered_planes``, ``k5_bounds``, ``bounds_inputs``) are also the ones
+``chip_smoke.py`` uses for its timed checks at larger shapes.
 
 On a CPU tensor every wrapper runs its twin, so the gate would compare
 each twin with itself: ``run`` refuses a CPU device. ``check_all`` takes
@@ -51,6 +54,7 @@ from slam_tpu_torch.models.particles import init_particles
 from slam_tpu_torch.models.rbpf import associate_known, new_slots
 from slam_tpu_torch.ops import planes as pk
 from slam_tpu_torch.ops import resampling as rs
+from slam_tpu_torch.ops.kernels import bounds as kb
 from slam_tpu_torch.ops.kernels import gather as kg
 from slam_tpu_torch.ops.kernels import kernels as kk
 from slam_tpu_torch.ops.kernels import launch_counts
@@ -66,6 +70,11 @@ R = [[0.01, 0.0], [0.0, 0.0003]]
 Q = [[0.09, 0.0], [0.0, 0.0025]]
 # K5's tile of output columns, as in csrc/resample_update.cu (kTile).
 K5_TILE = kk.K5_TILE
+# R1's tile (csrc/offspring_bounds.cu, kTile) and the row of the twin's
+# blocked prefix sum (resampling._cumsum_blocked): where R1's bounds
+# must carry a running max across, and where the prefix sum dips.
+R1_TILE, CUMSUM_ROW = 2048, 1024
+BOUNDS_KINDS = ("random", "dips", "one", "uniform", "tail", "spike")
 T_PREDICT = 8
 # S1's drive: supersteps of T_PREDICT ticks on the bench's webmap world.
 SIM_SUPERSTEPS = 64
@@ -185,6 +194,54 @@ def k5_bounds(dev, rng, g, P, kind):
         raise ValueError(kind)
     S = np.searchsorted(anc, np.arange(P), side="right")
     return torch.tensor(S, dtype=torch.int32, device=dev)
+
+
+def bounds_inputs(dev, g, P, kind):
+    """R1's inputs at P slots: (csum [P] float32, a ``DitherTable`` of P
+    draws from ``g``). ``kind``: "random" (the prefix sum of weights
+    drawn from ``g``); "dips" (the same, each entry at a row edge of the
+    twin's prefix sum or a tile edge of R1 one ulp below the entry
+    before it, and every third tile edge 300 entries deep); "one" (all
+    the weight on one particle); "uniform"; "tail" (a prefix sum whose
+    last entries pass 1, the float tail the last ancestor takes);
+    "spike" (the first entry near 1, so tile 0's running max holds
+    over every later tile)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    if kind == "one":
+        logw = torch.full((P,), -80.0, **f32)
+        logw[P // 3] = 0.0
+    elif kind in ("uniform", "tail"):
+        logw = torch.zeros(P, **f32)
+    elif kind in ("random", "dips", "spike"):
+        logw = 2.0 * torch.randn(P, generator=g, **f32)
+    else:
+        raise ValueError(kind)
+    csum = rs.cumulative_weights(rs.normalize_log_weights(logw))
+    if kind == "tail":
+        csum = csum * (1.0 + 3e-5)
+    elif kind == "spike":
+        csum[0] = 0.999
+    elif kind == "dips":
+        for e in range(CUMSUM_ROW, P, CUMSUM_ROW):
+            csum[e] = torch.nextafter(csum[e - 1], csum.new_zeros(()))
+        for e in range(3 * R1_TILE, P, 3 * R1_TILE):
+            csum[e] = csum[e - 300]
+    return csum, rs.uniform_from_generator(P, g, dev)
+
+
+def check_offspring_bounds(dev, g, P, kinds=BOUNDS_KINDS) -> None:
+    """R1 at P on each kind of ``bounds_inputs``, bit-equal to its twin,
+    the dither given as a table and as a bare callable."""
+    for kind in kinds:
+        csum, U = bounds_inputs(dev, g, P, kind)
+        want = rs.offspring_bounds_plain(csum, P, U)
+        for dither in (U, lambda pos: U.table[pos]):
+            got = kb.offspring_bounds(csum, P, dither)
+            _sync(dev)
+            if not torch.equal(got, want):
+                at = (got != want).nonzero()[:8].flatten().tolist()
+                raise AssertionError(f"R1 (P={P}, {kind}): not bit-equal "
+                                     f"to its twin at {at}")
 
 
 def predict_inputs(dev, g, P, T, fs2: bool):
@@ -530,6 +587,14 @@ def fs2_tick_pair(est, state, ticks, seed: int):
     return out
 
 
+def _offspring_bounds(dev, g, sizes) -> dict:
+    """R1 at each P of ``sizes``, on every kind of ``bounds_inputs``."""
+    for P in sizes:
+        check_offspring_bounds(dev, g, P)
+    return dict(shape="P=" + ", ".join(map(str, sizes)), held="bit-equal",
+                max_abs_err=0.0)
+
+
 def _fs2_tick(dev, g, P) -> dict:
     """F2 on the FastSLAM 2 cell's path (the heading known, the noise off)
     against its twin, bit for bit."""
@@ -615,7 +680,8 @@ def check_all(device, p_small: int, p_large: int, p_k1: int,
            "K5 config5": _resample_update(dev, rng, g, p_large, config5),
            "S1": check_sim_control(dev, g, SIM_SUPERSTEPS),
            "E1": check_ekf_predict(dev, g, **EKF10K),
-           "F2": _fs2_tick(dev, g, p_k1)}
+           "F2": _fs2_tick(dev, g, p_k1),
+           "R1": _offspring_bounds(dev, g, (p_small, p_large))}
     if dev.type == "cuda":
         after = launch_counts()
         idle = [k for k in after if after[k] == before[k]]

@@ -10,7 +10,10 @@
   package evaluates it with threefry ``fold_in``, which torch cannot
   reproduce, so tests inject the JAX draws and compare bit for bit.
   ``uniform_from_generator`` gives the default, drawn from a
-  ``torch.Generator``.
+  ``torch.Generator``: a ``DitherTable``, which also hands its table to
+  R1.
+- On the card the bounds are one launch of R1 (``ops.kernels.bounds``);
+  ``offspring_bounds_plain`` is its twin, and what runs on the CPU.
 """
 
 from __future__ import annotations
@@ -62,16 +65,35 @@ def _cumsum_blocked(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
     return (within + prefix[:, None]).reshape(-1)[:n]
 
 
+class DitherTable:
+    """A ``uniform_at`` read from a table of U[0, 1) draws; R1 reads the
+    table itself."""
+
+    def __init__(self, table: torch.Tensor):
+        self.table = table
+
+    def __call__(self, pos: torch.Tensor) -> torch.Tensor:
+        return self.table[pos]
+
+
 def uniform_from_generator(n: int, generator: torch.Generator,
-                           device=None) -> UniformAt:
+                           device=None) -> DitherTable:
     """A ``uniform_at`` over positions [0, n): one U[0, 1) table drawn
     from ``generator``, read at the requested positions."""
-    table = torch.rand(n, generator=generator, device=device)
-    return lambda pos: table[pos]
+    return DitherTable(torch.rand(n, generator=generator, device=device))
 
 
 def offspring_bounds(csum: torch.Tensor, n_out: int,
                      uniform_at: UniformAt) -> torch.Tensor:
+    """The stratified offspring bounds (``offspring_bounds_plain``): on a
+    CUDA tensor one launch of R1, on a CPU tensor the plain form."""
+    # Imported here: the kernels' package imports this module.
+    from slam_tpu_torch.ops.kernels.bounds import offspring_bounds as r1
+    return r1(csum, n_out, uniform_at)
+
+
+def offspring_bounds_plain(csum: torch.Tensor, n_out: int,
+                           uniform_at: UniformAt) -> torch.Tensor:
     """S_i = #{j : u_j < csum_i} for the grid u_j = (j + U_j) / n_out,
     in closed form: u_j < c iff j < k, or j == k and U_k < frac, with
     k = floor(n_out c). S is non-decreasing; ancestor i owns output

@@ -266,7 +266,8 @@ def test_gate_runs_its_checks_at_small_shapes():
     got = selfcheck.check_all("cpu", 16, 1024, 256, selfcheck.WEBMAP,
                               selfcheck.CONFIG5)
     assert set(got) == {"K1", "K2", "K3", "K4", "K5", "K6", "K6b", "G1",
-                        "G2", "K4 config5", "K5 config5", "S1", "E1", "F2"}
+                        "G2", "K4 config5", "K5 config5", "S1", "E1", "F2",
+                        "R1"}
     assert all(v["max_abs_err"] == 0.0 for v in got.values())
 
 

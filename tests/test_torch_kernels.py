@@ -21,6 +21,7 @@ from slam_tpu.ops.pallas import gather as jgather
 from slam_tpu.ops.pallas import kernels as jkernels
 from slam_tpu_torch.models.particles import state_from_numpy
 from slam_tpu_torch.ops import kernels as tk
+from slam_tpu_torch.ops import resampling as trs
 from slam_tpu_torch.ops.kernels import build
 from slam_tpu_torch.ops.kernels import gather as tgather
 from slam_tpu_torch.ops.kernels import kernels as tkernels
@@ -296,9 +297,15 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     want = tvehicle.control_multi_plain(vehicle, waypoints, noise, **kw)
     for g, w in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
         assert torch.equal(g, w)
+
+    csum = torch.cumsum(torch.full((700,), 1.0 / 700), 0)
+    U = trs.uniform_from_generator(700, torch.Generator().manual_seed(2))
+    assert torch.equal(tk.offspring_bounds(csum, 700, U),
+                       trs.offspring_bounds_plain(csum, 700, U))
     assert tk.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                   "K5": 0, "K6": 0, "K6b": 0, "G1": 0,
-                                  "G2": 0, "S1": 0, "E1": 0, "F2": 0}
+                                  "G2": 0, "S1": 0, "E1": 0, "F2": 0,
+                                  "R1": 0}
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

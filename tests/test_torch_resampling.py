@@ -16,6 +16,7 @@ import torch
 
 from slam_tpu.ops import resampling as jrs
 from slam_tpu_torch.ops import resampling as trs
+from slam_tpu_torch.ops.kernels import bounds as tbounds
 
 
 def _logw(P, kind, seed=0):
@@ -84,6 +85,36 @@ def test_offspring_bounds_cummax_guard():
                                lambda pos: torch.tensor(U)[pos])
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.all(np.diff(got.numpy()) >= 0) and got[-1] == P
+
+
+def _guard_case():
+    """test_offspring_bounds_cummax_guard's prefix sum and dither."""
+    P = 64
+    csum = np.cumsum(np.full(P, 1.0 / P, np.float32)).astype(np.float32)
+    csum[20] = np.nextafter(csum[19], np.float32(0))
+    U = jrs._uniform_at(jax.random.PRNGKey(3), jnp.arange(P, dtype=jnp.int32))
+    return csum, torch.tensor(np.asarray(U))
+
+
+@pytest.mark.parametrize("case", [*CASES, "guard"])
+def test_r1_cpu_path_is_the_eager_form_on_jax_draws(case):
+    """R1's wrapper on a CPU tensor, with JAX's dither as a bare callable
+    and as a table: the eager form's bounds, which are JAX's."""
+    if case == "guard":
+        csum, U = _guard_case()
+        key = jax.random.PRNGKey(3)
+    else:
+        P, kind = case
+        key = jax.random.PRNGKey(P)
+        csum, U = _jax_draws(_logw(P, kind), key)
+    P = csum.shape[0]
+    want = np.asarray(jrs.offspring_bounds(key, jnp.asarray(csum), P))
+    c = torch.tensor(csum)
+    eager = trs.offspring_bounds_plain(c, P, lambda pos: U[pos])
+    np.testing.assert_array_equal(eager.numpy(), want)
+    for dither in (lambda pos: U[pos], trs.DitherTable(U)):
+        got = tbounds.offspring_bounds(c, P, dither)
+        assert torch.equal(got, eager)
 
 
 @pytest.mark.parametrize("kind", ["random", "uniform", "collapsed"])
